@@ -1,0 +1,88 @@
+"""Build the CSR representation (paper Alg. 1, 10, 11, §III-B7), twin of
+`repro.core.csr`.
+
+Shard i owns rows [i*B, (i+1)*B): offv [B+1] local offsets, adjv [nb*cap]
+destinations with a valid prefix of num_edges[i] entries.
+  build_csr_scatter  degrees by scatter-add, placement by a stable sort on row
+  build_csr_sorted   input sorted by source: offsets by searchsorted, adjv verbatim
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .redistribute import OwnedEdges
+from .types import GraphConfig
+
+
+class CSRShards(NamedTuple):
+    offv: torch.Tensor       # [nb*(B+1)]
+    adjv: torch.Tensor       # [nb*cap_m]
+    num_edges: torch.Tensor  # [nb]
+
+
+def _per_shard(owned: OwnedEdges, nb: int):
+    return (owned.src.reshape(nb, -1), owned.dst.reshape(nb, -1), owned.valid.reshape(nb, -1))
+
+
+def _bases(cfg: GraphConfig, device) -> torch.Tensor:
+    return (torch.arange(cfg.nb, dtype=torch.int64, device=device) * cfg.bucket_size).reshape(-1, 1)
+
+
+def build_csr_scatter(cfg: GraphConfig, owned: OwnedEdges) -> CSRShards:
+    """Unordered-input CSR (paper Alg. 10/11 with sort-rank placement)."""
+    nb, B = cfg.nb, cfg.bucket_size
+    s, d, v = _per_shard(owned, nb)
+    rows = (s.to(torch.int64) - _bases(cfg, s.device)).clamp(0, B - 1)
+    degv = torch.zeros((nb, B), dtype=torch.int32, device=s.device)
+    degv.scatter_add_(1, rows, v.to(torch.int32))
+    offv = torch.cat([torch.zeros((nb, 1), dtype=torch.int32, device=s.device),
+                      torch.cumsum(degv, 1, dtype=torch.int32)], dim=1)
+    del degv
+    # stable sort by row (invalid -> B sinks to the end) is the placement
+    rows = torch.where(v, rows, B)
+    order = torch.argsort(rows, dim=1, stable=True)
+    del rows
+    cnt = v.sum(1, dtype=torch.int32)
+    pos = torch.arange(s.shape[1], device=s.device).reshape(1, -1)
+    adjv = torch.where(pos < cnt.reshape(-1, 1), torch.gather(d, 1, order), 0)
+    return CSRShards(offv.reshape(-1), adjv.reshape(-1), cnt)
+
+
+def build_csr_sorted(cfg: GraphConfig, owned: OwnedEdges) -> CSRShards:
+    """Sorted-input CSR (paper Alg. 1): input must be redistribute_sorted output."""
+    nb, B = cfg.nb, cfg.bucket_size
+    s, d, v = _per_shard(owned, nb)
+    cnt = v.sum(1, dtype=torch.int32)
+    keyed = torch.where(v, s - _bases(cfg, s.device).to(s.dtype), B)
+    targets = torch.arange(B + 1, dtype=keyed.dtype, device=s.device).expand(nb, B + 1).contiguous()
+    offv = torch.searchsorted(keyed, targets, side="left", out_int32=True)
+    del keyed, targets
+    pos = torch.arange(d.shape[1], device=s.device).reshape(1, -1)
+    adjv = torch.where(pos < cnt.reshape(-1, 1), d, 0)
+    return CSRShards(offv.reshape(-1), adjv.reshape(-1), cnt)
+
+
+def csr_to_host(csr: CSRShards, cfg: GraphConfig):
+    """One host (offv [n+1] int64, adjv [m]) pair from the distributed CSR."""
+    B, nb = cfg.bucket_size, cfg.nb
+    offv_s = csr.offv.cpu().numpy().reshape(nb, B + 1)
+    adjv_s = csr.adjv.cpu().numpy().reshape(nb, -1)
+    cnt = csr.num_edges.cpu().numpy()
+    parts = [adjv_s[i, : cnt[i]] for i in range(nb)]
+    base = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
+    offv = np.concatenate([offv_s[i, :-1].astype(np.int64) + base[i] for i in range(nb)]
+                          + [[base[-1]]])
+    return offv, np.concatenate(parts) if parts else np.zeros((0,), np.int32)
+
+
+def csr_neighbors(csr: CSRShards, cfg: GraphConfig, v: int) -> torch.Tensor:
+    """Adjacency list of global vertex v."""
+    B = cfg.bucket_size
+    shard, row = divmod(v, B)
+    offv = csr.offv.reshape(cfg.nb, B + 1)[shard]
+    adjv = csr.adjv.reshape(cfg.nb, -1)[shard]
+    return adjv[int(offv[row]):int(offv[row + 1])]

@@ -1,0 +1,163 @@
+"""The k:1 scatter-gather collective on a leading shard dimension (twin of
+`repro.distributed.collectives`).
+
+The reference runs these inside `shard_map` over nb devices.  Here all nb
+shards live on one device as the leading dimension of each array:
+
+    lax.all_to_all  ->  swap of dims 0 and 1 of [sender, dest, cap, ...]
+    lax.ppermute    ->  torch.roll over dim 0   (ring_shift)
+    lax.psum        ->  .sum()
+
+`bucket_by_destination`, `unbucket`, `merge_two_sorted` and
+`merge_sorted_runs` are per-shard functions with the reference's signatures.
+The per-destination counts that place each bucket come from the
+`bucket_hist` kernel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..kernels.bucket import bucket_hist
+
+
+class Buckets(NamedTuple):
+    data: torch.Tensor      # [k, capacity, ...] bucketed payload
+    valid: torch.Tensor     # [k, capacity] bool
+    position: torch.Tensor  # [N] int64 dest*capacity + slot (k*capacity if dropped)
+    dropped: torch.Tensor   # [] int32 records beyond capacity
+
+
+def bucket_by_destination(data: torch.Tensor, dest: torch.Tensor, k: int, capacity: int,
+                          valid: Optional[torch.Tensor] = None) -> Buckets:
+    """Stable bucketing of `data` rows by `dest` in [0, k) with fixed capacity.
+
+    Records keep their relative order within a destination; those past
+    `capacity` are counted in `dropped`; rows with valid=False take no slot.
+    """
+    n = dest.shape[0]
+    dev = dest.device
+    dest = dest.to(torch.int32)
+    if valid is not None:
+        dest = torch.where(valid, dest, k)                     # sentinel group
+    order = torch.argsort(dest, stable=True)
+    sorted_dest = dest[order]
+    # Start of each destination group: exclusive prefix sum of the counts
+    # (records with the sentinel k are not counted, so this equals the
+    # reference's searchsorted over the sorted destinations).
+    counts = bucket_hist(dest, k).to(torch.int64)
+    group_start = torch.cumsum(counts, 0) - counts
+    rank_sorted = (torch.arange(n, dtype=torch.int64, device=dev)
+                   - group_start[sorted_dest.clamp(max=k - 1).to(torch.int64)])
+    del sorted_dest
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    rank[order] = rank_sorted
+    del order, rank_sorted
+    real = dest < k
+    keep = (rank < capacity) & real
+    # Overflow goes to the scratch slot k*capacity, cut off below.
+    slot = torch.where(keep, dest.to(torch.int64) * capacity + rank, k * capacity)
+    dropped = ((rank >= capacity) & real).sum().to(torch.int32)
+    del rank, keep, real
+    flat = torch.zeros((k * capacity + 1,) + tuple(data.shape[1:]), dtype=data.dtype, device=dev)
+    flat[slot] = data
+    occupied = torch.zeros(k * capacity + 1, dtype=torch.bool, device=dev)
+    occupied[slot] = True
+    return Buckets(
+        data=flat[:-1].reshape((k, capacity) + tuple(data.shape[1:])),
+        valid=occupied[:-1].reshape(k, capacity),
+        position=slot,
+        dropped=dropped,
+    )
+
+
+def unbucket(buckets_data: torch.Tensor, position: torch.Tensor, fill=0) -> torch.Tensor:
+    """Inverse of bucket_by_destination for the return trip; dropped records get `fill`."""
+    k, capacity = buckets_data.shape[:2]
+    flat = buckets_data.reshape((k * capacity,) + tuple(buckets_data.shape[2:]))
+    pad = torch.full((1,) + tuple(flat.shape[1:]), fill, dtype=flat.dtype, device=flat.device)
+    return torch.cat([flat, pad])[position]
+
+
+class ExchangeResult(NamedTuple):
+    data: torch.Tensor      # [nb, nb, capacity, ...] [receiver, sender] records
+    valid: torch.Tensor     # [nb, nb, capacity] bool
+    position: torch.Tensor  # [nb, N] each sender's bucketing positions
+    dropped: torch.Tensor   # [] int32 dropped over all shards
+
+
+def capacity_all_to_all(data: torch.Tensor, dest: torch.Tensor, *, capacity: int) -> ExchangeResult:
+    """Bucket each shard's records by destination shard and exchange them.
+
+    `data` is [nb, N, ...], `dest` [nb, N] in [0, nb).  Each sender's buckets
+    are written straight into the receivers' rows: the all_to_all is the
+    [sender, dest] -> [dest, sender] transpose, done while bucketing.
+    """
+    nb = data.shape[0]
+    recv = torch.empty((nb, nb, capacity) + tuple(data.shape[2:]), dtype=data.dtype,
+                       device=data.device)
+    recv_valid = torch.empty((nb, nb, capacity), dtype=torch.bool, device=data.device)
+    position = torch.empty(dest.shape, dtype=torch.int64, device=data.device)
+    dropped = torch.zeros((), dtype=torch.int32, device=data.device)
+    for s in range(nb):
+        b = bucket_by_destination(data[s], dest[s], nb, capacity)
+        recv[:, s] = b.data
+        recv_valid[:, s] = b.valid
+        position[s] = b.position
+        dropped += b.dropped
+        del b
+    return ExchangeResult(recv, recv_valid, position, dropped)
+
+
+def return_all_to_all(results: torch.Tensor, position: torch.Tensor, *, fill=0) -> torch.Tensor:
+    """Return trip: `results` [receiver, sender, cap, ...] go back to their
+    senders and are scattered to the original record order ([nb, N, ...])."""
+    back = results.transpose(0, 1)
+    return torch.stack([unbucket(back[s], position[s], fill=fill)
+                        for s in range(results.shape[0])])
+
+
+def ring_shift(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """Shard i receives the block of shard (i + shift) mod nb."""
+    return torch.roll(x, -shift, dims=0)
+
+
+def merge_two_sorted(a: torch.Tensor, b: torch.Tensor, a_payload=None, b_payload=None):
+    """Merge two sorted arrays by searchsorted ranks (ties: a before b)."""
+    na, nb_ = a.shape[0], b.shape[0]
+    dev = a.device
+    pos_a = torch.arange(na, device=dev) + torch.searchsorted(b, a, side="left")
+    pos_b = torch.arange(nb_, device=dev) + torch.searchsorted(a, b, side="right")
+    out = torch.empty(na + nb_, dtype=a.dtype, device=dev)
+    out[pos_a] = a
+    out[pos_b] = b
+    if a_payload is None:
+        return out
+    pay = torch.empty((na + nb_,) + tuple(a_payload.shape[1:]), dtype=a_payload.dtype, device=dev)
+    pay[pos_a] = a_payload
+    pay[pos_b] = b_payload
+    return out, pay
+
+
+def merge_sorted_runs(keys: torch.Tensor, payload: Optional[torch.Tensor] = None):
+    """K-way merge of k sorted runs [k, run] in log2(k) pairwise rounds."""
+    k = keys.shape[0]
+    if k & (k - 1):
+        raise ValueError(f"k={k} must be a power of two")
+    while k > 1:
+        pairs = [merge_two_sorted(keys[2 * i], keys[2 * i + 1],
+                                  None if payload is None else payload[2 * i],
+                                  None if payload is None else payload[2 * i + 1])
+                 for i in range(k // 2)]
+        if payload is None:
+            keys = torch.stack(pairs)
+        else:
+            keys = torch.stack([p[0] for p in pairs])
+            payload = torch.stack([p[1] for p in pairs])
+        del pairs
+        k //= 2
+    if payload is None:
+        return keys[0]
+    return keys[0], payload[0]

@@ -1,0 +1,86 @@
+"""The per-item instruction count that the chip smoke's kernel bounds use,
+on SASS listings written in `cuobjdump -sass`'s format."""
+
+import pytest
+
+from repro_torch.kernels.sass import per_item_ops
+
+LISTING = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_117rmat_edges_kernelILi2EEEvPiS1_ljjjjj
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                   /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_CTAID.X ;            /* 0x0000000000007919 */
+        /*0020*/                   ULDC.64 UR4, c[0x0][0x210] ;    /* 0x0000840000047ab9 */
+        /*0030*/                   ISETP.GE.U32.AND P0, PT, R0, UR4, PT ;
+        /*0040*/               @P0 EXIT ;
+        /*0050*/                   ULOP3.LUT UR6, UR4, 0x9e3779b9, URZ, 0x3c, !UPT ;
+        /*0060*/                   IMAD R3, R0, 0x7feb352d, RZ ;
+        /*0070*/                   STG.E desc[UR4][R2.64], R3 ;
+        /*0080*/                   EXIT ;
+        /*0090*/                   BRA 0x90 ;
+        /*00a0*/                   NOP ;
+        /*00b0*/                   NOP ;
+\t\t..........
+
+\t\tFunction : _ZN12_GLOBAL__N_117rmat_edges_kernelILi26EEEvPiS1_ljjjjj
+        /*0000*/                   S2R R0, SR_CTAID.X ;
+        /*0010*/                   EXIT ;
+\t\t..........
+
+\t\tFunction : _ZN12_GLOBAL__N_118bucket_hist_kernelEPKiliPi
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   STS [R0], RZ ;
+        /*0020*/                   IADD3 R2, R0, 0x1, RZ ;
+        /*0030*/              @!P1 BRA 0x20 ;
+        /*0040*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0050*/                   LDG.E R5, desc[UR4][R2.64+0x400] ;
+        /*0060*/                   MATCH.ANY R6, R4 ;
+        /*0070*/                   POPC R7, R6 ;
+        /*0080*/               @P0 ATOMS.ADD RZ, [R4], R7 ;
+        /*0090*/                   UIADD3 UR6, UR6, 0x1, URZ ;
+        /*00a0*/              @!P0 BRA 0x40 ;
+        /*00b0*/                   EXIT ;
+        /*00c0*/                   BRA 0xc0 ;
+		..........
+
+		Function : _ZN49_GLOBAL__N__c69a4754_16_graph_kernels_cu_91c5601418bucket_hist_kernelEPKiliPi
+        /*0000*/                   S2R R10, SR_TID.X ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R10, UR5, PT ;
+        /*0020*/                   IMAD.IADD R3, R4, 0x1, R3 ;
+        /*0030*/              @!P0 BRA 0x20 ;
+        /*0040*/                   IADD3 R7, P1, R10, UR6, RZ ;
+        /*0050*/              @!P0 LDG.E.CONSTANT R6, desc[UR14][R4.64] ;
+        /*0060*/                   UIADD3 UR6, UP0, UR6, UR8, URZ ;
+        /*0070*/                   MATCH.ANY R7, R7 ;
+        /*0080*/               @P1 BRA 0xa0 ;
+        /*0090*/                   ATOMS.ADD RZ, [R6], R5 ;
+        /*00a0*/                   BSYNC B0 ;
+        /*00b0*/              @!P0 BRA 0x40 ;
+        /*00c0*/                   EXIT ;
+        /*00d0*/                   BRA 0xd0 ;
+        /*00e0*/                   NOP ;
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    # LDC S2R ISETP EXIT IMAD STG EXIT: the uniform ULDC/ULOP3, the
+    # self-branch and the NOPs after the last EXIT do not count
+    ("rmat_edges_kernelILi2E", 7),
+    ("rmat_edges_kernelILi26E", 2),
+    # the loop that loads: 6 thread instructions (UIADD3 is uniform) over 2
+    # loads; the loop before it loads nothing
+    ("N_118bucket_hist_kernel", 3),
+    # the loop 0x40..0xb0 holds 7 thread instructions and one load
+    ("_cu_91c5601418bucket_hist_kernel", 7),
+])
+def test_per_item_ops(kernel, want):
+    assert per_item_ops(LISTING, kernel) == want
+
+
+def test_per_item_ops_needs_one_function():
+    with pytest.raises(KeyError):
+        per_item_ops(LISTING, "rmat_edges_kernel")
+    with pytest.raises(KeyError):
+        per_item_ops(LISTING, "feistel_perm_kernel")
