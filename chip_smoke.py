@@ -6,9 +6,15 @@
 Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
 
 1. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and at edge cases, bit-equal (tolerance zero:
-   all values are integers), with CUDA-event times of the kernel, the plain
-   version and, where one exists, a single PyTorch library call;
+   at the main paths' shapes and at edge cases, with CUDA-event times of the
+   kernel, the plain version and, where one exists, a single PyTorch library
+   call.  The four graph kernels are bit-equal (tolerance zero: all values
+   are integers); `flash_attention` is held, row by row, to its error
+   relative to the row's largest value (`flash_attention.row_error`): 1e-5
+   in f32 (the sum order differs), 2^-6 in bf16 (two bf16 ulps of the row's
+   largest value), and planted faults at the main path's shapes (the softmax
+   scale 5 % off; the last 32 keys of each decode row dropped) must exceed
+   that limit;
 2. variant phase: every generate() variant at scale 16, nb 8, on the card
    and on the CPU, bit-equal;
 3. main phase: generate(GraphConfig(scale=26, nb=8)) (Graph500 "toy") with
@@ -16,8 +22,19 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    empty allocator cache and once warm, launch counts set to 0 just before
    and read just after each, validated on the card; then the same for the
    communication-free variant (shuffle_variant="recompute"), the main path's
-   user of the Feistel kernel.  The kernels' bounds count the per-thread
-   SASS instructions of this build (`repro_torch.kernels.sass`).
+   user of the Feistel kernel.  The graph kernels' bounds count the
+   per-thread SASS instructions of this build (`repro_torch.kernels.sass`);
+4. serve_parity phase: the serve path's smoke configs (internlm2, codeqwen;
+   f32) on the card and on the CPU: prefill and decode logits within 1e-4,
+   the Engine's tokens equal;
+5. serve_main phase: the continuous-batching Engine serving internlm2-1.8b
+   at full width (bf16, random weights from a seeded generator on the card),
+   8 slots of 4096 positions, 16 requests of 128-2048 prompt tokens and 64
+   new tokens each (12 greedy, 4 sampled), admitted in waves as slots free
+   up; launch counts set to 0 just before and read just after, every logit
+   finite, and flash launches = layers x (prefills + decode waves); then a
+   short window of the same engine under torch.profiler (`serve_trace`:
+   the card's busy share and device time by kernel).
 
 Prints the card's name and power limit, one JSON line per check, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Any failed
@@ -47,6 +64,17 @@ MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 # (`repro_torch.kernels.sass`), counted in this run's build.
 INT_OPS_PER_SM_CLK = 128
 PLAIN_CHUNK = 1 << 27              # feistel_perm_plain's int64 temporaries, 1 GiB each
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
+SLEEP_CYCLES = 20_000_000          # ~10 ms of card time ahead of each timed call
+SERVE_ARCH = "internlm2-1.8b"      # launch/serve.py's default architecture
+SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
+SERVE_PROMPT_RANGE = (128, 2048)   # prompt lengths of a 1.8B chat / code model
+SERVE_SAMPLED = (3, 7, 11, 15)     # uids that sample (temperature 0.8, top-k 40)
+SERVE_SEED = 0
+TRACE_PROMPT, TRACE_NEW_TOKENS = 512, 32   # serve_trace's window
+PARITY_ARCHS = ("internlm2-1.8b", "codeqwen1.5-7b")
+PARITY_TOL = 1e-4                  # f32 logits, card vs CPU: the sum order differs
 
 
 def require(cond: bool, msg: str) -> None:
@@ -91,19 +119,20 @@ def main() -> int:
           "int_peak_ops_per_s": int_ops_per_s})
 
     t = time.perf_counter()
-    lib_path = build.build()
+    graph_lib = build.build()[0]
     build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t, "library": lib_path.name})
+    emit({"phase": "build", "seconds": time.perf_counter() - t,
+          "libraries": [p.name for p in build.build()]})
     main_cfg = GraphConfig(scale=MAIN_SCALE, nb=NB)
     eps, B, rounds = main_cfg.edges_per_shard, main_cfg.bucket_size, main_cfg.feistel_rounds
-    listing = sass.listing(lib_path)
+    listing = sass.listing(graph_lib)
     ops_per_item = {
         "rmat_edges": sass.per_item_ops(listing, f"rmat_edges_kernelILi{MAIN_SCALE}E"),
         "feistel_perm": sass.per_item_ops(listing, f"feistel_perm_kernelILi{rounds}E"),
         "relabel_gather": sass.per_item_ops(listing, "relabel_gather_kernel"),
         "bucket_hist": sass.per_item_ops(listing, "bucket_hist_kernel"),
     }
-    emit({"phase": "sass", "listing": lib_path.with_suffix(".sass").name,
+    emit({"phase": "sass", "listing": graph_lib.with_suffix(".sass").name,
           "per_item_ops": ops_per_item})
 
     def time_ms(fn, reps=5):
@@ -113,6 +142,9 @@ def main() -> int:
         for _ in range(reps):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            # the card sleeps while the host enqueues the call, so the
+            # wrapper's host time (~0.1 ms) is not counted as kernel time
+            torch.cuda._sleep(SLEEP_CYCLES)
             a.record()
             fn()
             b.record()
@@ -236,6 +268,7 @@ def main() -> int:
         check_kernel("bucket_hist", f"k {k} with pad value k, n 1000003",
                      lambda: ops.bucket_hist(dk, k), lambda: ops.bucket_hist_plain(dk, k),
                      size=dk.numel())
+    flash = flash_phase(torch, ops, dev, g, time_ms)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -338,28 +371,327 @@ def main() -> int:
     require(main_counts["main_recompute"]["feistel_perm"] > 0,
             "recompute main path never launched feistel_perm")
 
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    # 4-5. the serve path: card == CPU on the smoke configs, then the
+    # full-width Engine
+    # ------------------------------------------------------------------
+    serve_parity_phase(torch, dev)
+    torch.cuda.empty_cache()
+    main_counts["serve_main"] = serve_main_phase(torch, ops, dev)
+
     sources = {
         "rmat_edges": "src/repro/kernels/rmat.py:85",
         "feistel_perm": "src/repro/kernels/rmat.py:137",
         "relabel_gather": "src/repro/kernels/relabel_gather.py:54",
         "bucket_hist": "src/repro/kernels/bucket.py:49",
+        "flash_attention": "src/repro/kernels/flash_attention.py:114",
     }
+    summary["flash_attention"] = flash["b"]
     kernels = []
     for name in build.KERNELS:
         s = summary[name]
-        launches = main_counts["main"][name] + main_counts["main_recompute"][name]
-        require(launches > 0, f"{name} was launched no time on the main path")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/graph_kernels.cu",
-                        "replaces": sources[name], "launches": launches,
-                        "max_abs_err": s["max_abs_diff"], "ms": s["kernel_ms"],
-                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                        "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+        launches = sum(counts[name] for label, counts in main_counts.items() if label != "main_cold")
+        require(launches > 0, f"{name} was launched no time on the main paths")
+        entry = {"name": name, "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/" + (
+                     "attention_kernels.cu" if name == "flash_attention" else "graph_kernels.cu"),
+                 "replaces": sources[name], "launches": launches,
+                 "max_abs_err": s["max_abs_diff"], "ms": s["kernel_ms"],
+                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                 "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
+        if name == "flash_attention":     # the line's numbers are the decode wave's
+            entry.update({k: s[k] for k in ("case", "row_error", "tolerance")})
+            entry["prefill"] = {k: flash["a"][k] for k in (
+                "case", "row_error", "max_abs_diff", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _flash_bound(torch, q, k, offsets, causal):
+    """(ms, "bytes" or "operations") of the least time for these inputs: each
+    q and output element once, the K/V rows some query sees once; 4 D Hq
+    operations per visible (query, key) pair at the bf16 tensor-core peak."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if causal:
+        i = offsets.cpu().long()[:, None] + 1 + torch.arange(Sq)[None, :]
+        pairs = int(i.clamp(0, Skv).sum())
+        kv_rows = int((offsets.cpu().long() + Sq).clamp(0, Skv).sum())
+    else:
+        pairs, kv_rows = B * Sq * Skv, B * Skv
+    n_bytes = q.element_size() * (2 * q.numel() + 2 * Hkv * D * kv_rows)
+    t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S, 4 * D * Hq * pairs / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_phase(torch, ops, dev, g, time_ms):
+    """flash_attention against its plain version at the serve path's shapes:
+    (a) prefill at full width, (b) the decode wave (both timed, with the
+    SDPA call over the same mask as the library yardstick), (c) non-causal
+    with ragged Sq / Skv, (d) the smoke configs' D 16, (e, f) the split-KV
+    path with ragged chunks, causal and not, (g) the tensor-core path with
+    ragged tiles and GQA group 5.  In (a) and (b) the kernel is also run
+    with planted faults, which the check must reject."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import TOLERANCE, row_error
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B = SERVE_SLOTS
+    decode_off = torch.randint(127, SERVE_MAX_LEN - 1, (B,), generator=g, device=dev,
+                               dtype=torch.int32)
+    cases = {   # B, Hq, Hkv, Sq, Skv, D, offsets [B], causal, dtype, timed
+        "a": ("prefill: B 1, Sq 2048 against the 4096-slot cache, offset 0, D 128, bf16",
+              1, 16, 8, 2048, SERVE_MAX_LEN, 128, torch.zeros(1, dtype=torch.int32, device=dev),
+              True, bf16, True),
+        "b": ("decode wave: B 8, Sq 1, Skv 4096, per-slot offsets in [127, 4094], D 128, bf16",
+              B, 16, 8, 1, SERVE_MAX_LEN, 128, decode_off, True, bf16, True),
+        "c": ("non-causal: B 2, Sq 1000, Skv 1531, D 128, f32",
+              2, 16, 8, 1000, 1531, 128, None, False, f32, False),
+        "d": ("smoke: B 2, Hq 4, Hkv 2, Sq 37, Skv 64, offsets [3, 27], D 16, f32",
+              2, 4, 2, 37, 64, 16, torch.tensor([3, 27], dtype=torch.int32, device=dev),
+              True, f32, False),
+        "e": ("split-KV: B 2, Hq 4, Hkv 2, Sq 3, Skv 1000, offsets [500, 990], D 64, f32",
+              2, 4, 2, 3, 1000, 64, torch.tensor([500, 990], dtype=torch.int32, device=dev),
+              True, f32, False),
+        "f": ("split-KV non-causal: B 1, Hq 2, Hkv 1, Sq 1, Skv 700, D 32, f32",
+              1, 2, 1, 1, 700, 32, None, False, f32, False),
+        "g": ("tensor cores, ragged: B 2, Hq 10, Hkv 2, Sq 37, Skv 100, offsets [0, 50], "
+              "D 64, bf16", 2, 10, 2, 37, 100, 64,
+              torch.tensor([0, 50], dtype=torch.int32, device=dev), True, bf16, False),
+    }
+    out = {}
+    for key, (case, B_, Hq, Hkv, Sq, Skv, D, off, causal, dtype, timed) in cases.items():
+        q = torch.randn(B_, Hq, Sq, D, generator=g, device=dev).to(dtype)
+        k = torch.randn(B_, Hkv, Skv, D, generator=g, device=dev).to(dtype)
+        v = torch.randn(B_, Hkv, Skv, D, generator=g, device=dev).to(dtype)
+        kernel = lambda: ops.flash_attention(q, k, v, causal=causal, offset=off)  # noqa: E731
+        plain = lambda: ops.flash_attention_plain(q, k, v, causal=causal, offset=off)  # noqa: E731
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), f"flash_attention [{key}] not finite")
+        tol, err = TOLERANCE[dtype], row_error(got, want)
+        require(err <= tol, f"flash_attention [{key}] differs from its plain version: "
+                            f"row error {err} > {tol}")
+        line = {"kernel": "flash_attention", "case": case, "dtype": str(dtype), "row_error": err,
+                "tolerance": tol, "max_abs_diff": float((got.float() - want.float()).abs().max())}
+        if timed:
+            # planted faults: the check must tell them from the sound kernel
+            faults = {"softmax scale 5 % off": ops.flash_attention(
+                q, k, v, causal=causal, offset=off, scale=1.05 / D ** 0.5)}
+            if Sq == 1:
+                faults["last 32 keys of each row dropped"] = ops.flash_attention(
+                    q, k, v, causal=causal, offset=off - 32)
+            line["planted_faults"] = {name: row_error(bad, want) for name, bad in faults.items()}
+            for name, bad_err in line["planted_faults"].items():
+                require(bad_err > tol, f"flash_attention [{key}]: planted fault '{name}' passes "
+                                       f"the check: row error {bad_err} <= {tol}")
+            del faults
+            qpos = off[:, None] + torch.arange(Sq, device=dev)[None, :]
+            mask = (torch.arange(Skv, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+            line["kernel_ms"] = time_ms(kernel)
+            line["plain_ms"] = time_ms(plain, reps=3)
+            line["library_ms"] = time_ms(library)
+            line["bound_ms"], line["bound_by"] = _flash_bound(torch, q, k, off, causal)
+            del mask
+        emit(line)
+        out[key] = line
+        del q, k, v, got, want
+    return out
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _serve_requests(n, vocab, rng, plen, max_new, sampled):
+    from repro_torch.serve import Request, SamplingParams
+    reqs = []
+    for uid in range(n):
+        prompt = rng.integers(0, vocab, int(rng.integers(plen[0], plen[1] + 1))).tolist()
+        sampling = (SamplingParams(temperature=0.8, top_k=40, seed=uid) if uid in sampled
+                    else SamplingParams())
+        reqs.append(Request(uid=uid, prompt=prompt, max_new_tokens=max_new, sampling=sampling))
+    return reqs
+
+
+def serve_parity_phase(torch, dev):
+    """The smoke configs (f32, D 16) on the card and on the CPU: the same
+    parameters give logits within PARITY_TOL and the Engine the same tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model, init_all
+    from repro_torch.serve import Engine
+
+    for arch in PARITY_ARCHS:
+        cfg = get_smoke_config(arch)
+        api = get_model(cfg)
+        on = {"cpu": init_all(cfg, seed=SERVE_SEED, device="cpu")}
+        on["cuda"] = _to(on["cpu"], dev)
+        tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+        logits = {}
+        for where, params in on.items():
+            d = dev if where == "cuda" else torch.device("cpu")
+            t = torch.from_numpy(tokens).to(d)
+            cache = api.init_cache(cfg, 2, 64, d)
+            lg, cache = api.prefill(cfg, params, {"tokens": t[:, :8]}, cache)
+            logits[where] = [lg]
+            for i in range(8, 12):
+                lg, cache = api.decode_step(cfg, params, t[:, i:i + 1], cache)
+                logits[where].append(lg)
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(logits["cuda"], logits["cpu"]))
+        require(err <= PARITY_TOL, f"serve_parity {arch}: logits card vs CPU differ by {err}")
+        served = {}
+        for where, params in on.items():
+            reqs = _serve_requests(8, cfg.vocab_size, np.random.default_rng(2), (1, 24), 8,
+                                   sampled=(1, 4, 6))
+            eng = Engine(cfg, params, max_batch=4, max_len=64, device=dev if where == "cuda" else "cpu")
+            served[where] = (eng.run(reqs), eng.steps, eng.prefill_tokens, eng.decode_tokens)
+        require(served["cuda"] == served["cpu"], f"serve_parity {arch}: Engine differs card vs CPU")
+        emit({"phase": "serve_parity", "arch": cfg.name, "dtype": cfg.dtype,
+              "logits_max_abs_diff": err, "tolerance": PARITY_TOL, "tokens_equal": True,
+              "requests": len(served["cpu"][0]), "steps": served["cpu"][1]})
+
+
+def serve_main_phase(torch, ops, dev):
+    """internlm2-1.8b at full width behind the continuous-batching Engine.
+    Returns the launch counts of the run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_all, layers
+    from repro_torch.serve import Engine
+
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = init_all(cfg, seed=SERVE_SEED, device=dev)
+    engine = Engine(cfg, params, max_batch=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    reqs = _serve_requests(SERVE_REQUESTS, cfg.vocab_size, np.random.default_rng(SERVE_SEED),
+                           SERVE_PROMPT_RANGE, SERVE_NEW_TOKENS, SERVE_SAMPLED)
+
+    # CUDA events around every prefill and decode wave, and around every
+    # attention call inside them; finiteness of every logit is folded on the
+    # card and read once at the end
+    events = {"prefill": [], "decode": []}
+    attn_events = {"prefill": [], "decode": []}
+    kind_now = ["prefill"]
+    finite = [torch.ones((), dtype=torch.bool, device=dev)]
+
+    def pair():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(fn, kind):
+        def call(cfg_, params_, x, cache):
+            kind_now[0] = kind
+            a, b = pair()
+            a.record()
+            logits, cache = fn(cfg_, params_, x, cache)
+            b.record()
+            events[kind].append((a, b))
+            finite[0] = finite[0] & torch.isfinite(logits).all()
+            return logits, cache
+        return call
+
+    def timed_attention(*args, **kw):
+        a, b = pair()
+        a.record()
+        o = flash_attention(*args, **kw)
+        b.record()
+        attn_events[kind_now[0]].append((a, b))
+        return o
+
+    flash_attention = layers.flash_attention
+    layers.flash_attention = timed_attention
+    engine.api = engine.api._replace(prefill=timed(engine.api.prefill, "prefill"),
+                                     decode_step=timed(engine.api.decode_step, "decode"))
+    ops.reset_launches()
+    t = time.perf_counter()
+    try:
+        out = engine.run(reqs)
+        torch.cuda.synchronize()
+    finally:
+        layers.flash_attention = flash_attention
+    wall = time.perf_counter() - t
+    counts = dict(ops.LAUNCHES)
+    prefill_ms = [a.elapsed_time(b) for a, b in events["prefill"]]
+    decode_ms = [a.elapsed_time(b) for a, b in events["decode"]]
+    attn_ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in attn_events.items()}
+    new_tokens = sum(len(v) for v in out.values())
+    line = {"phase": "serve_main", "arch": cfg.name, "dtype": cfg.dtype,
+            "params": cfg.param_count(), "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+            "requests": len(out), "prompt_tokens": sum(len(r.prompt) for r in reqs),
+            "prefill_tokens": engine.prefill_tokens, "decode_tokens": engine.decode_tokens,
+            "steps": engine.steps, "admissions": len(prefill_ms), "setup_s": setup_s,
+            "wall_s": wall, "output_tokens_per_s": new_tokens / wall,
+            "prefill_ms_per_admission": statistics.mean(prefill_ms),
+            "prefill_ms_total": sum(prefill_ms),
+            "decode_ms_per_wave": statistics.mean(decode_ms),
+            "decode_ms_per_wave_median": statistics.median(decode_ms),
+            "decode_ms_total": sum(decode_ms),
+            "attention_ms_in_prefill": attn_ms["prefill"],
+            "attention_ms_in_decode": attn_ms["decode"],
+            "host_ms_outside_model": wall * 1e3 - sum(prefill_ms) - sum(decode_ms),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "flash_launches": counts["flash_attention"], "launches": counts,
+            "logits_finite": bool(finite[0])}
+    emit(line)
+    require(len(out) == SERVE_REQUESTS, f"serve_main: {len(out)} of {SERVE_REQUESTS} requests served")
+    require(all(len(v) == SERVE_NEW_TOKENS for v in out.values()),
+            "serve_main: a request ended short of its new tokens")
+    require(line["logits_finite"], "serve_main: a logit is not finite")
+    require(counts["flash_attention"] == cfg.num_layers * (len(prefill_ms) + engine.steps),
+            f"serve_main: {counts['flash_attention']} flash launches != {cfg.num_layers} x "
+            f"({len(prefill_ms)} prefills + {engine.steps} decode waves)")
+    serve_trace(torch, engine, cfg)
+    del engine, params
+    return counts
+
+
+def serve_trace(torch, engine, cfg):
+    """A short window of the same engine under torch.profiler (8 requests of
+    512 prompt tokens, 32 new tokens): the card's busy share (kernel and copy
+    time over the window's wall time; the profiler's own host cost makes the
+    idle share an upper bound) and the device time by kernel."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = _serve_requests(SERVE_SLOTS, cfg.vocab_size, np.random.default_rng(SERVE_SEED + 1),
+                           (TRACE_PROMPT, TRACE_PROMPT), TRACE_NEW_TOKENS, ())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # device-side rows only (kernels, copies): an operator's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(ms for _, ms, _ in rows)
+    require(device_ms > 0, "serve_trace: the profiler saw no device time")
+    rows.sort(key=lambda r: -r[1])
+    emit({"phase": "serve_trace", "requests": len(reqs), "prompt_tokens": TRACE_PROMPT,
+          "new_tokens": TRACE_NEW_TOKENS,
+          "wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+          "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:10]]})
 
 
 if __name__ == "__main__":

@@ -1,0 +1,18 @@
+"""internlm2-1.8b — dense GQA.
+
+[arXiv:2403.17297; hf internlm/internlm2-1_8b]  24L d_model=2048, 16H
+(GQA kv=8), d_ff=8192, vocab=92544.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-1.8b", family="dense",
+    num_layers=24, d_model=2048, num_heads=16, num_kv_heads=8,
+    d_ff=8192, vocab_size=92544, rope_theta=1_000_000.0,
+)
+
+SMOKE = ModelConfig(
+    name="internlm2-smoke", family="dense",
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+    d_ff=128, vocab_size=512, dtype="float32",
+)

@@ -1,9 +1,11 @@
 """Build, load and launch bookkeeping of the hand-written CUDA kernels.
 
-`csrc/graph_kernels.cu` is compiled with `nvcc` for `sm_90a` at first use
-into `build/kernels/` at the root of the checkout (git-ignored), named by the
-source's hash so an edited source is rebuilt, and loaded with `ctypes`.  Every
-C entry point returns `cudaGetLastError()`; `check` raises on a nonzero code.
+Each source in `csrc/` is compiled with `nvcc` for `sm_90a` at first use into
+its own shared library in `build/kernels/` at the root of the checkout
+(git-ignored), named by the source's hash so an edited source is rebuilt;
+the `nvcc` of every source that needs it are started together.  The
+libraries are loaded with `ctypes`.  Every C entry point returns
+`cudaGetLastError()`; `check` raises on a nonzero code.
 
 `LAUNCHES` counts the launches of each kernel: a wrapper adds one exactly
 where it launches its kernel, and nowhere else.
@@ -17,13 +19,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "graph_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "graph_kernels.cu", CSRC / "attention_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("rmat_edges", "feistel_perm", "relabel_gather", "bucket_hist")
+KERNELS = ("rmat_edges", "feistel_perm", "relabel_gather", "bucket_hist", "flash_attention")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -35,6 +39,8 @@ _SIGNATURES = {
     "feistel_perm_launch": [_P, _P, _LL, _I, _I, ctypes.POINTER(_U), _P],
     "relabel_gather_launch": [_P, _P, _P, _LL, _LL, _LL, _P],
     "bucket_hist_launch": [_P, _LL, _I, _P, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, ctypes.c_float, _P],
 }
 
 _lib = None
@@ -54,39 +60,53 @@ def cuda_tool(name: str) -> str:
     return os.path.join(home, "bin", name)
 
 
-def build() -> Path:
-    """Compile the kernels' shared library unless this source was built already."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libgraph_kernels_{digest}.so"
-    if out.exists():
-        return out
+def build() -> list[Path]:
+    """The shared library of each source, in `SOURCES` order, compiling those
+    not built already: one `nvcc` per source, all started together."""
+    outs = [BUILD_DIR / f"lib{src.stem}_{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+            for src in SOURCES]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{r.stdout}{r.stderr}")
-    out.with_suffix(".log").write_text(r.stdout + r.stderr)   # ptxas -v: registers, spills
-    os.replace(tmp, out)
-    return out
+    jobs = []
+    for src, out in zip(SOURCES, outs):
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        with tmp.with_suffix(".log").open("w") as log:   # ptxas -v: registers, spills
+            jobs.append((cmd, tmp, out, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    try:
+        for cmd, tmp, out, proc in jobs:
+            if proc.wait() != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                                   f"{tmp.with_suffix('.log').read_text()}")
+            os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
+            os.replace(tmp, out)
+    finally:
+        for *_, proc in jobs:     # after a failure, stop the other nvcc
+            if proc.poll() is None:
+                proc.kill()
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def library() -> SimpleNamespace:
+    """The kernels' C entry points, from the libraries built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        libs = [ctypes.CDLL(str(path)) for path in build()]
+        fns = {}
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
             fn.argtypes = argtypes
             fn.restype = _I
-        lib.graph_kernels_error_string.argtypes = [_I]
-        lib.graph_kernels_error_string.restype = ctypes.c_char_p
-        _lib = lib
+            fns[name] = fn
+        fns["error_string"] = libs[0].graph_kernels_error_string
+        fns["error_string"].argtypes = [_I]
+        fns["error_string"].restype = ctypes.c_char_p
+        _lib = SimpleNamespace(**fns)
     return _lib
 
 
 def check(err: int, name: str) -> None:
     if err != 0:
-        msg = library().graph_kernels_error_string(err).decode()
+        msg = library().error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")

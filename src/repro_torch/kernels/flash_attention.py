@@ -1,0 +1,159 @@
+"""GQA flash attention of the LM serving path: CUDA kernel + plain version.
+
+Replaces `repro/kernels/flash_attention.py::flash_attention_pallas` and
+computes the function of `repro/models/layers.py::_chunked_attention`, the
+attention the serving path runs: q [B, Hq, Sq, D] against k, v
+[B, Hkv, Skv, D], query head h reading kv head h // (Hq / Hkv), softmax in
+f32, output in q's dtype.  Query i sits at absolute position offset + i and,
+when causal, sees the keys j <= offset + i.  `offset` is an int, a 0-d
+tensor or an int32 [B] tensor (one per sequence: the serve engine's slot
+lengths); its default Skv - Sq is the Pallas kernel's own (queries are the
+last Sq positions).  The keys past the valid prefix of a cache buffer are
+masked by the same inequality, so k and v may be a layer's whole
+[B, Hkv, max_len, D] cache.  A row with every key masked gives 0, as the
+Pallas kernel does.
+
+The kernel (`csrc/attention_kernels.cu`) takes f32 or bf16 with D in
+{16, 32, 64, 128}; its design and bounds are noted in the source.  bf16
+with at least 16 queries (prefill) runs its tensor-core form; otherwise
+(decode, f32) its scalar form, and where that grid would not fill the card
+the wrapper splits the keys over blocks and a combine pass merges them.
+Each call counts as one launch of `flash_attention`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_ROWS = 16                   # (query head, query) rows of one kernel block
+SPLIT_KEYS = 256                   # keys of one split-KV block (kSplitKeys in the source)
+MMA_MIN_QUERIES = 16               # bf16 with this many queries takes the tensor-core kernel
+PLAIN_Q_CHUNK = 1024               # queries per chunk of the plain version (its memory bound)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Limits of `row_error` for the kernel against its plain version.  f32: the
+# sum order differs.  bf16: both round each output to bf16, and the plain
+# version also rounds the softmax weights, so one output may differ by an
+# ulp, up to 2^-7 of its row's largest value; the limit is two such ulps.
+TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def _shapes(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention takes q [B,Hq,Sq,D], k = v [B,Hkv,Skv,D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, Sq, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or k.shape[1] < 1 or Hq % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair for GQA")
+    return B, Hq, k.shape[1], Sq, k.shape[2], D
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, scale=None, offset=None) -> torch.Tensor:
+    """Plain version, the reference's `_chunked_attention`: the grouped product
+    per query chunk, full-row softmax in f32, the weights cast to v's dtype
+    before the product with v (accumulated in f32)."""
+    B, Hq, Sq, Hkv, Skv, D = *q.shape[:3], k.shape[1], k.shape[2], q.shape[3]
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    if offset is None:
+        offset = Skv - Sq
+    offset = torch.as_tensor(offset, device=q.device)
+    qg = q.reshape(B, Hkv, g, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(Skv, device=q.device)
+    chunks = []
+    for c0 in range(0, Sq, PLAIN_Q_CHUNK):
+        qc = qg[:, :, :, c0:c0 + PLAIN_Q_CHUNK]
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * scale
+        if causal:
+            base = torch.arange(c0, c0 + qc.shape[3], device=q.device)
+            if offset.dim() == 0:
+                mask = kpos[None, :] <= (base + offset)[:, None]                 # [bq, Skv]
+            else:
+                qpos = offset[:, None] + base[None, :]                           # [B, bq]
+                mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None, None]  # [B,1,1,bq,Skv]
+            logits = logits.masked_fill(~mask, float("-inf"))
+            w = torch.softmax(logits, dim=-1)
+            w = torch.where(mask.any(dim=-1, keepdim=True), w, 0.0)   # fully masked rows: 0
+        else:
+            w = torch.softmax(logits, dim=-1)
+        w = w.to(v.dtype).float()
+        chunks.append(torch.einsum("bhgqk,bhkd->bhgqd", w, vf).to(q.dtype))
+    return torch.cat(chunks, dim=3).reshape(B, Hq, Sq, D)
+
+
+def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of an output row relative to that row's size:
+    max over rows of max_d |got - want| / max_d |want| (0 for rows equal
+    to want, inf for a wrong row where want is 0).  Each row is held to its
+    own size, so the long rows of a prefill or a decode wave, whose outputs
+    are small, are held as tightly as the short ones."""
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    size = want.float().abs().amax(dim=-1)
+    rel = torch.where(diff > 0, diff / size, torch.zeros_like(diff))
+    return float(rel.max()) if rel.numel() else 0.0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale=None, offset=None) -> torch.Tensor:
+    """GQA attention [B, Hq, Sq, D]: the plain version for CPU tensors, the
+    kernel for CUDA tensors (it raises on what the kernel does not take)."""
+    B, Hq, Hkv, Sq, Skv, D = _shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale, offset=offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if not (k.device == v.device == q.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes f32 or bf16 alike, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dim in {HEAD_DIMS}, got {D}")
+    g = Hq // Hkv
+    if g > KERNEL_ROWS:
+        raise ValueError(f"flash_attention kernel takes at most {KERNEL_ROWS} query heads "
+                         f"per kv head, got {g}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel takes contiguous 16-byte aligned "
+                             f"tensors; {name} is not")
+    if Sq == 0:
+        return torch.empty_like(q)
+    offsets, offset_scalar = None, Skv - Sq
+    if isinstance(offset, torch.Tensor):
+        if offset.dtype != torch.int32 or offset.device != q.device or offset.dim() > 1 \
+                or (offset.dim() == 1 and offset.shape[0] != B):
+            raise ValueError(f"offset must be an int32 scalar or [B] tensor on {q.device}, got "
+                             f"{offset.dtype} {tuple(offset.shape)} on {offset.device}")
+        offsets = offset.expand(B).contiguous()
+    elif offset is not None:
+        offset_scalar = int(offset)
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    bq = max(1, min(KERNEL_ROWS // g, Sq))
+    # the scalar kernel splits the keys over blocks when (B, Hkv, q tiles)
+    # alone would not fill the card; the tensor-core kernel never does
+    splits = 1
+    tensor_cores = q.dtype == torch.bfloat16 and Sq >= MMA_MIN_QUERIES
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    if not tensor_cores and -(-Sq // bq) * Hkv * B < sms and Skv > SPLIT_KEYS:
+        splits = -(-Skv // SPLIT_KEYS)
+    part_acc = part_ml = None
+    if splits > 1:
+        part_acc = torch.empty((splits, B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((splits, B, Hq, Sq, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = build.library().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            part_acc.data_ptr() if splits > 1 else None,
+            part_ml.data_ptr() if splits > 1 else None,
+            offsets.data_ptr() if offsets is not None else None, offset_scalar,
+            B, Hq, Hkv, Sq, Skv, D, bq, splits, _DTYPES[q.dtype], int(causal), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention")
+    build.LAUNCHES["flash_attention"] += 1
+    return out

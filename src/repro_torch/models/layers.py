@@ -1,0 +1,119 @@
+"""Shared layers of the dense LM (twin of `repro/models/layers.py`).
+
+Activations [B, S, d]; attention tensors [B, H, S, hd]; weights in the
+reference's [in, out] layout, applied as `x @ w`.  The attention of every
+call goes through `kernels/flash_attention.py`: the hand-written kernel for
+CUDA tensors, its plain version (the reference's `_chunked_attention`) for
+CPU tensors.  MLA (`mla_attention`) is not ported yet.
+
+A KV cache is {"k", "v": [B, Hkv, max_len, hd], "length": int32 0-d or [B]}.
+`attention` writes the new K/V into the cache's buffers in place (the
+reference returns updated copies; in place saves copying a layer's cache
+every step) and returns {"k", "v", "length": length + S} over the same
+buffers.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+
+# f32 products (the f32 logits, the f32 smoke configs) run in full f32, not
+# TF32: PyTorch's default, set here because parity with the reference needs it.
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * p["scale"].float()).to(dt)
+
+
+def decode_positions(length: torch.Tensor, S: int) -> torch.Tensor:
+    """Absolute positions of S new tokens given cache length (0-d or [B])."""
+    steps = torch.arange(S, device=length.device, dtype=length.dtype)
+    if length.dim() == 1:
+        return length[:, None] + steps[None, :]
+    return length + steps
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """NeoX/llama half-rotation RoPE in f32.  x [B, H, S, hd], positions [S] or [B, S]."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs        # [..., S, hd/2]
+    angles = angles[None, None] if angles.dim() == 2 else angles[:, None]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mlp(p, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def _write_cache(buf: torch.Tensor, new: torch.Tensor, length: torch.Tensor) -> None:
+    """buf[:, :, length:length+S] = new, per sequence when length is [B].  The
+    start is clamped to [0, max_len - S], as JAX's dynamic_update_slice does:
+    the engine decodes idle slots too, and their lengths outgrow the buffer."""
+    S, max_len = new.shape[2], buf.shape[2]
+    start = length.clamp(0, max_len - S).long()
+    steps = torch.arange(S, device=buf.device)
+    if length.dim() == 1:
+        rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        buf[rows, :, start[:, None] + steps[None, :]] = new.transpose(1, 2)
+    else:
+        buf[:, :, start + steps] = new
+
+
+def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, kv_cache=None,
+              causal: bool = True):
+    """Full attention sublayer.  x [B, S, d].
+
+    kv_cache: None (no cache) or a layer's cache: the new K/V are written at
+    [length, length + S) and the queries attend over the whole buffer, the
+    unwritten tail masked by offset = length.
+    Returns (out [B, S, d], updated cache or None).
+    """
+    B, S, _ = x.shape
+    hd, Hq, Hkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, Hq, hd).transpose(1, 2)
+    k = k.reshape(B, S, Hkv, hd).transpose(1, 2)
+    v = v.reshape(B, S, Hkv, hd).transpose(1, 2)
+    q = apply_rope(q, positions, cfg.rope_theta).contiguous()   # the kernel's layout
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if kv_cache is not None:
+        length = kv_cache["length"]
+        _write_cache(kv_cache["k"], k, length)
+        _write_cache(kv_cache["v"], v, length)
+        new_cache = {"k": kv_cache["k"], "v": kv_cache["v"], "length": length + S}
+        out = flash_attention(q, kv_cache["k"], kv_cache["v"], causal=True, offset=length)
+    else:
+        out = flash_attention(q, k.contiguous(), v.contiguous(), causal=causal)
+    out = out.transpose(1, 2).reshape(B, S, Hq * hd)
+    return out @ p["wo"], new_cache
+
+
+def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tokens"][tokens]
+
+
+def unembed(p, x: torch.Tensor, fp32: bool = True, valid_vocab: int = 0) -> torch.Tensor:
+    w = p["w"]
+    if fp32:
+        x, w = x.float(), w.float()
+    logits = x @ w
+    if valid_vocab and valid_vocab < w.shape[-1]:
+        logits[..., valid_vocab:] = -1e9       # vocab-padding mask
+    return logits

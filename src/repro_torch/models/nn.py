@@ -1,0 +1,40 @@
+"""Parameter initialisers (twin of `repro/models/nn.py::ParamFactory.param`).
+
+The reference's mesh plumbing (`shard`, `DistContext`) has no counterpart on
+one card.  Numbers come from an explicit `torch.Generator` on the target
+device, so they differ from the reference's `jax.random` ones; parity tests
+carry the reference's parameters across with `models/convert.py`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+class ParamFactory:
+    """Creates parameters of one dtype on one device from one generator."""
+
+    def __init__(self, generator: torch.Generator, device, dtype: torch.dtype):
+        self.generator = generator
+        self.device = torch.device(device)
+        self.dtype = dtype
+
+    def param(self, shape: Tuple[int, ...], init: str = "normal", scale: float = 1.0):
+        """`normal`: std scale / sqrt(fan_in), fan_in = shape[-2] (shape[-1] for
+        a vector); `embed`: std `scale`; `zeros`; `ones`.  Drawn in f32, then
+        cast to the factory's dtype."""
+        if init in ("normal", "embed"):
+            std = scale
+            if init == "normal":
+                fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+                std = scale / (fan_in ** 0.5)
+            x = torch.randn(shape, generator=self.generator, device=self.device,
+                            dtype=torch.float32)
+            return x.mul_(std).to(self.dtype)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if init == "ones":
+            return torch.ones(shape, dtype=self.dtype, device=self.device)
+        raise ValueError(init)

@@ -6,11 +6,14 @@ imports no jax, so it runs on a machine that has only the port's packages:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import ctypes
+
 import pytest
 import torch
 
 from repro_torch.core.types import GraphConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.flash_attention import TOLERANCE, row_error
 
 
 @pytest.fixture
@@ -61,3 +64,76 @@ def test_relabel_gather_kernel_matches_plain(cuda, base):
     assert torch.equal(ops.relabel_gather(keys, chunk, base),
                        ops.relabel_gather_plain(keys, chunk, base))
     assert ops.relabel_gather(keys[:0], chunk, base).numel() == 0
+
+
+# flash_attention: (b) the decode wave at full width (bf16, per-slot offsets),
+# (c) non-causal with ragged Sq / Skv (f32), (d) the smoke configs' D 16 (f32),
+# the split-KV path (few blocks, long keys) with ragged chunks, and the
+# tensor-core path (bf16, >= 16 queries) with ragged tiles and GQA group 5.
+# Each output row is held to its error relative to its own largest value,
+# at flash_attention.TOLERANCE: f32 1e-5 (the sum order differs); bf16 2^-6
+# (two bf16 ulps of the row's largest value).
+FLASH_CASES = {
+    "b_decode_wave": (8, 16, 8, 1, 4096, 128, "offsets", True, torch.bfloat16),
+    "c_noncausal_ragged": (2, 16, 8, 1000, 1531, 128, None, False, torch.float32),
+    "d_smoke_d16": (2, 4, 2, 37, 64, 16, [3, 27], True, torch.float32),
+    "split_kv_ragged": (2, 4, 2, 3, 1000, 64, [500, 990], True, torch.float32),
+    "split_kv_noncausal": (1, 2, 1, 1, 700, 32, None, False, torch.float32),
+    "tensor_cores_ragged": (2, 10, 2, 37, 100, 64, [0, 50], True, torch.bfloat16),
+    "tensor_cores_noncausal": (1, 4, 4, 100, 77, 32, None, False, torch.bfloat16),
+}
+
+
+def _flash_inputs(name, cuda):
+    B, Hq, Hkv, Sq, Skv, D, offset, causal, dtype = FLASH_CASES[name]
+    g = torch.Generator(device="cpu").manual_seed(len(name))
+    q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype)
+               for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+    if offset == "offsets":
+        offset = torch.randint(127, 4095, (B,), generator=g, dtype=torch.int32)
+    if offset is not None:
+        offset = torch.as_tensor(offset, dtype=torch.int32).to(cuda)
+    return q, k, v, offset, causal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, name):
+    q, k, v, offset, causal = _flash_inputs(name, cuda)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, offset=offset)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ops.flash_attention_plain(q, k, v, causal=causal, offset=offset)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+    assert row_error(got, want) <= TOLERANCE[q.dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["scale", "drop_last_keys"])
+def test_flash_attention_check_rejects_planted_faults(cuda, fault):
+    """The decode wave run with the softmax scale 5 % off, or with the last
+    32 keys of each row dropped, fails the check the kernel passes."""
+    q, k, v, offset, causal = _flash_inputs("b_decode_wave", cuda)
+    want = ops.flash_attention_plain(q, k, v, causal=causal, offset=offset)
+    if fault == "scale":
+        bad = ops.flash_attention(q, k, v, causal=causal, offset=offset,
+                                  scale=1.05 / q.shape[-1] ** 0.5)
+    else:
+        bad = ops.flash_attention(q, k, v, causal=causal, offset=offset - 32)
+    assert row_error(bad, want) > TOLERANCE[q.dtype]
+
+
+@pytest.mark.gpu
+def test_rebuilt_library_loads_every_kernel(cuda, tmp_path, monkeypatch):
+    """Each source compiles into a fresh library of its own; together they
+    export the four graph kernels and the flash attention."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    paths = build.build()
+    assert [p.parent for p in paths] == [tmp_path] * len(build.SOURCES)
+    libs = [ctypes.CDLL(str(p)) for p in paths]
+    for name in build.KERNELS:
+        assert any(hasattr(lib, f"{name}_launch") for lib in libs), name
+    logs = "".join(p.with_suffix(".log").read_text() for p in paths)
+    assert "flash_attention_kernel" in logs and "rmat_edges_kernel" in logs
+    assert build.build() == paths and not list(tmp_path.glob("*.tmp"))

@@ -179,6 +179,7 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"repro_torch.serve", "repro_torch.models", "repro_torch.launch.serve"} <= set(names)
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules), "reference imported"
 print(len(names))
 """
@@ -195,6 +196,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core.rmat import rmat_edge_block
     from repro_torch.kernels import ops
 
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import init_all, transformer
+    from repro_torch.serve import Engine, Request, generate_reference
+
+    lm = get_smoke_config("internlm2-1.8b")
+    lm_params = init_all(lm, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = GraphConfig(scale=6, nb=2)
     calls = [
@@ -208,6 +216,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: shuffle.shuffle_recompute(cfg, device="cuda"),
         lambda: rmat_edge_block(cfg, 0, 16, device="cuda"),
         lambda: ops.rmat_edges(cfg, 0, 16, device="cuda"),
+        lambda: init_all(lm),
+        lambda: transformer.init_cache(lm, 1, 8),
+        lambda: init_all(lm, seed=1, device="cuda"),
+        lambda: Engine(lm, lm_params),
+        lambda: Engine(lm, lm_params, max_batch=2, max_len=16, device="cuda"),
+        lambda: generate_reference(lm, lm_params, Request(uid=0, prompt=[1])),
+        lambda: launch_serve.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
