@@ -9,12 +9,17 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    at the main paths' shapes and at edge cases, with CUDA-event times of the
    kernel, the plain version and, where one exists, a single PyTorch library
    call.  The four graph kernels are bit-equal (tolerance zero: all values
-   are integers); `flash_attention` is held, row by row, to its error
-   relative to the row's largest value (`flash_attention.row_error`): 1e-5
-   in f32 (the sum order differs), 2^-6 in bf16 (two bf16 ulps of the row's
-   largest value), and planted faults at the main path's shapes (the softmax
-   scale 5 % off; the last 32 keys of each decode row dropped) must exceed
-   that limit;
+   are integers); `flash_attention`'s two kernels (decode: split-KV with
+   1-D bulk copies; prefill: wgmma + TMA) are held, row by row, to their
+   error relative to the row's largest value (`flash_attention.row_error`):
+   1e-5 in f32 (the sum order differs), 2^-6 in bf16 (two bf16 ulps of the
+   row's largest value), in cases (a)-(i), and planted faults at the main
+   path's shapes (the softmax scale 5 % off; the last 32 keys of each row
+   dropped) must exceed that limit.  Before that, the attention library's
+   `ptxas -v` report and SASS give each kernel instance's registers and
+   spills, and the run fails unless every prefill instance issues HGMMA
+   and UTMALDG and every decode instance an asynchronous copy (UBLKCP or
+   LDGSTS);
 2. variant phase: every generate() variant at scale 16, nb 8, on the card
    and on the CPU, bit-equal;
 3. main phase: generate(GraphConfig(scale=26, nb=8)) (Graph500 "toy") with
@@ -32,7 +37,9 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    8 slots of 4096 positions, 16 requests of 128-2048 prompt tokens and 64
    new tokens each (12 greedy, 4 sampled), admitted in waves as slots free
    up; launch counts set to 0 just before and read just after, every logit
-   finite, and flash launches = layers x (prefills + decode waves); then a
+   finite, and flash launches = layers x (prefills + decode waves), the
+   prefill kernel's layers x prefills and the decode kernel's layers x
+   decode waves; then a
    short window of the same engine under torch.profiler (`serve_trace`:
    the card's busy share and device time by kernel).
 
@@ -119,10 +126,11 @@ def main() -> int:
           "int_peak_ops_per_s": int_ops_per_s})
 
     t = time.perf_counter()
-    graph_lib = build.build()[0]
+    graph_lib, attn_lib = build.build()
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "libraries": [p.name for p in build.build()]})
+    attention_build_phase(sass, attn_lib)
     main_cfg = GraphConfig(scale=MAIN_SCALE, nb=NB)
     eps, B, rounds = main_cfg.edges_per_shard, main_cfg.bucket_size, main_cfg.feistel_rounds
     listing = sass.listing(graph_lib)
@@ -388,30 +396,67 @@ def main() -> int:
         "bucket_hist": "src/repro/kernels/bucket.py:49",
         "flash_attention": "src/repro/kernels/flash_attention.py:114",
     }
-    summary["flash_attention"] = flash["b"]
+    # flash_attention's two kernels, each with the numbers of its main case
+    summary["flash_attention_decode"] = flash["b"]
+    summary["flash_attention_prefill"] = flash["a"]
+    sources["flash_attention_decode"] = sources["flash_attention_prefill"] = \
+        sources.pop("flash_attention")
     kernels = []
-    for name in build.KERNELS:
+    for name in [n for n in build.KERNELS if n != "flash_attention"] + list(build.FLASH_KERNELS):
         s = summary[name]
         launches = sum(counts[name] for label, counts in main_counts.items() if label != "main_cold")
         require(launches > 0, f"{name} was launched no time on the main paths")
         entry = {"name": name, "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/" + (
-                     "attention_kernels.cu" if name == "flash_attention" else "graph_kernels.cu"),
+                     "attention_kernels.cu" if name.startswith("flash") else "graph_kernels.cu"),
                  "replaces": sources[name], "launches": launches,
                  "max_abs_err": s["max_abs_diff"], "ms": s["kernel_ms"],
                  "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                  "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
-        if name == "flash_attention":     # the line's numbers are the decode wave's
+        if name.startswith("flash"):
             entry.update({k: s[k] for k in ("case", "row_error", "tolerance")})
-            entry["prefill"] = {k: flash["a"][k] for k in (
-                "case", "row_error", "max_abs_diff", "kernel_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")}
         kernels.append(entry)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def attention_build_phase(sass, lib):
+    """Registers and spills of every instance of the two attention kernels
+    (`ptxas -v`), and the instructions that show their design in the SASS:
+    HGMMA (wgmma) and UTMALDG (TMA tensor loads) in every prefill instance,
+    an asynchronous copy (UBLKCP, the 1-D bulk copy; or LDGSTS) in every
+    decode instance.  A missing instruction or a spill in a decode instance
+    fails the run."""
+    import re
+
+    usage = sass.ptxas_usage(lib.with_suffix(".log").read_text())
+    listing = sass.listing(lib)
+    found = []
+    for kind in ("decode", "prefill"):
+        ops_of = sass.opcodes(listing, f"flash_attention_{kind}_kernel")
+        require(ops_of, f"no flash_attention_{kind}_kernel in the SASS of {lib.name}")
+        for fn, ops_ in sorted(ops_of.items()):
+            targs = re.search(r"_kernelI(.*?)EEEv", fn).group(1)   # the template arguments
+            dtype = {"1": ["bf16"], "f": ["f32"]}.get(targs[:1], [])
+            short = f"{kind}<{','.join(dtype + re.findall(r'Li(\d+)', targs))}>"
+            u = usage.get(fn, {})
+            row = {"kernel": short, "registers": u.get("registers"),
+                   "spill_stores": u.get("spill_stores"), "spill_loads": u.get("spill_loads"),
+                   "HGMMA": "HGMMA" in ops_, "UTMALDG": "UTMALDG" in ops_,
+                   "async_copy": sorted(ops_ & {"UBLKCP", "LDGSTS"})}
+            found.append(row)
+            if kind == "prefill":
+                require(row["HGMMA"] and row["UTMALDG"],
+                        f"{short}: no HGMMA or UTMALDG in its SASS")
+            else:
+                require(row["async_copy"], f"{short}: no asynchronous copy in its SASS")
+                require(u.get("spill_stores") == 0 and u.get("spill_loads") == 0,
+                        f"{short} spills: {u}")
+    emit({"phase": "attention_build", "listing": lib.with_suffix(".sass").name,
+          "instances": found})
 
 
 def _flash_bound(torch, q, k, offsets, causal):
@@ -435,40 +480,50 @@ def flash_phase(torch, ops, dev, g, time_ms):
     """flash_attention against its plain version at the serve path's shapes:
     (a) prefill at full width, (b) the decode wave (both timed, with the
     SDPA call over the same mask as the library yardstick), (c) non-causal
-    with ragged Sq / Skv, (d) the smoke configs' D 16, (e, f) the split-KV
-    path with ragged chunks, causal and not, (g) the tensor-core path with
-    ragged tiles and GQA group 5.  In (a) and (b) the kernel is also run
-    with planted faults, which the check must reject."""
+    with ragged Sq / Skv, (d) the smoke configs' D 16, (e, f) the decode
+    kernel's split-KV path with ragged chunks, causal and not, (g) the
+    prefill kernel with ragged tiles and GQA group 5, (h) a decode wave with
+    GQA group 5 and ragged offsets (0, tile and chunk edges, the last key,
+    an idle slot past the cache), (i) a timed prefill of 512 queries.  In
+    (a), (b) and (h) the kernel is also run with planted faults, which the
+    check must reject."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import TOLERANCE, row_error
+    from repro_torch.kernels.flash_attention import TOLERANCE, plan, row_error
 
     bf16, f32 = torch.bfloat16, torch.float32
     B = SERVE_SLOTS
     decode_off = torch.randint(127, SERVE_MAX_LEN - 1, (B,), generator=g, device=dev,
                                dtype=torch.int32)
-    cases = {   # B, Hq, Hkv, Sq, Skv, D, offsets [B], causal, dtype, timed
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    ragged = torch.tensor([0, 31, 480, 1500, 2999, 4094, 4095, 5096], dtype=torch.int32,
+                          device=dev)
+    cases = {   # B, Hq, Hkv, Sq, Skv, D, offsets [B], causal, dtype, timed, planted faults
         "a": ("prefill: B 1, Sq 2048 against the 4096-slot cache, offset 0, D 128, bf16",
-              1, 16, 8, 2048, SERVE_MAX_LEN, 128, torch.zeros(1, dtype=torch.int32, device=dev),
-              True, bf16, True),
+              1, 16, 8, 2048, SERVE_MAX_LEN, 128, zero, True, bf16, True, True),
         "b": ("decode wave: B 8, Sq 1, Skv 4096, per-slot offsets in [127, 4094], D 128, bf16",
-              B, 16, 8, 1, SERVE_MAX_LEN, 128, decode_off, True, bf16, True),
+              B, 16, 8, 1, SERVE_MAX_LEN, 128, decode_off, True, bf16, True, True),
         "c": ("non-causal: B 2, Sq 1000, Skv 1531, D 128, f32",
-              2, 16, 8, 1000, 1531, 128, None, False, f32, False),
+              2, 16, 8, 1000, 1531, 128, None, False, f32, False, False),
         "d": ("smoke: B 2, Hq 4, Hkv 2, Sq 37, Skv 64, offsets [3, 27], D 16, f32",
               2, 4, 2, 37, 64, 16, torch.tensor([3, 27], dtype=torch.int32, device=dev),
-              True, f32, False),
+              True, f32, False, False),
         "e": ("split-KV: B 2, Hq 4, Hkv 2, Sq 3, Skv 1000, offsets [500, 990], D 64, f32",
               2, 4, 2, 3, 1000, 64, torch.tensor([500, 990], dtype=torch.int32, device=dev),
-              True, f32, False),
+              True, f32, False, False),
         "f": ("split-KV non-causal: B 1, Hq 2, Hkv 1, Sq 1, Skv 700, D 32, f32",
-              1, 2, 1, 1, 700, 32, None, False, f32, False),
+              1, 2, 1, 1, 700, 32, None, False, f32, False, False),
         "g": ("tensor cores, ragged: B 2, Hq 10, Hkv 2, Sq 37, Skv 100, offsets [0, 50], "
               "D 64, bf16", 2, 10, 2, 37, 100, 64,
-              torch.tensor([0, 50], dtype=torch.int32, device=dev), True, bf16, False),
+              torch.tensor([0, 50], dtype=torch.int32, device=dev), True, bf16, False, False),
+        "h": ("decode wave, GQA group 5: B 8, Hq 40, Hkv 8, Sq 1, Skv 4096, offsets "
+              "[0, 31, 480, 1500, 2999, 4094, 4095, 5096 (idle)], D 128, bf16",
+              B, 40, 8, 1, SERVE_MAX_LEN, 128, ragged, True, bf16, False, True),
+        "i": ("prefill: B 1, Sq 512 against the 4096-slot cache, offset 0, D 128, bf16",
+              1, 16, 8, 512, SERVE_MAX_LEN, 128, zero, True, bf16, True, False),
     }
     out = {}
-    for key, (case, B_, Hq, Hkv, Sq, Skv, D, off, causal, dtype, timed) in cases.items():
+    for key, (case, B_, Hq, Hkv, Sq, Skv, D, off, causal, dtype, timed, planted) in cases.items():
         q = torch.randn(B_, Hq, Sq, D, generator=g, device=dev).to(dtype)
         k = torch.randn(B_, Hkv, Skv, D, generator=g, device=dev).to(dtype)
         v = torch.randn(B_, Hkv, Skv, D, generator=g, device=dev).to(dtype)
@@ -480,20 +535,23 @@ def flash_phase(torch, ops, dev, g, time_ms):
         tol, err = TOLERANCE[dtype], row_error(got, want)
         require(err <= tol, f"flash_attention [{key}] differs from its plain version: "
                             f"row error {err} > {tol}")
-        line = {"kernel": "flash_attention", "case": case, "dtype": str(dtype), "row_error": err,
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        path = plan(dtype, B_, Hq, Hkv, Sq, Skv, D, sms).kernel
+        line = {"kernel": f"flash_attention_{path}", "case": case, "dtype": str(dtype),
+                "row_error": err,
                 "tolerance": tol, "max_abs_diff": float((got.float() - want.float()).abs().max())}
-        if timed:
+        if planted:
             # planted faults: the check must tell them from the sound kernel
             faults = {"softmax scale 5 % off": ops.flash_attention(
-                q, k, v, causal=causal, offset=off, scale=1.05 / D ** 0.5)}
-            if Sq == 1:
-                faults["last 32 keys of each row dropped"] = ops.flash_attention(
-                    q, k, v, causal=causal, offset=off - 32)
+                q, k, v, causal=causal, offset=off, scale=1.05 / D ** 0.5),
+                "last 32 keys of each row dropped": ops.flash_attention(
+                    q, k, v, causal=causal, offset=off - 32)}
             line["planted_faults"] = {name: row_error(bad, want) for name, bad in faults.items()}
             for name, bad_err in line["planted_faults"].items():
                 require(bad_err > tol, f"flash_attention [{key}]: planted fault '{name}' passes "
                                        f"the check: row error {bad_err} <= {tol}")
             del faults
+        if timed:
             qpos = off[:, None] + torch.arange(Sq, device=dev)[None, :]
             mask = (torch.arange(Skv, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -651,7 +709,9 @@ def serve_main_phase(torch, ops, dev):
             "host_ms_outside_model": wall * 1e3 - sum(prefill_ms) - sum(decode_ms),
             "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-            "flash_launches": counts["flash_attention"], "launches": counts,
+            "flash_launches": counts["flash_attention"],
+            "flash_prefill_launches": counts["flash_attention_prefill"],
+            "flash_decode_launches": counts["flash_attention_decode"], "launches": counts,
             "logits_finite": bool(finite[0])}
     emit(line)
     require(len(out) == SERVE_REQUESTS, f"serve_main: {len(out)} of {SERVE_REQUESTS} requests served")
@@ -661,6 +721,10 @@ def serve_main_phase(torch, ops, dev):
     require(counts["flash_attention"] == cfg.num_layers * (len(prefill_ms) + engine.steps),
             f"serve_main: {counts['flash_attention']} flash launches != {cfg.num_layers} x "
             f"({len(prefill_ms)} prefills + {engine.steps} decode waves)")
+    require(counts["flash_attention_prefill"] == cfg.num_layers * len(prefill_ms)
+            and counts["flash_attention_decode"] == cfg.num_layers * engine.steps,
+            f"serve_main: prefill / decode kernel launches {counts['flash_attention_prefill']} / "
+            f"{counts['flash_attention_decode']}, not layers x prefills / layers x waves")
     serve_trace(torch, engine, cfg)
     del engine, params
     return counts

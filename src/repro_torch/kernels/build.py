@@ -8,7 +8,8 @@ libraries are loaded with `ctypes`.  Every C entry point returns
 `cudaGetLastError()`; `check` raises on a nonzero code.
 
 `LAUNCHES` counts the launches of each kernel: a wrapper adds one exactly
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else (`flash_attention` adds one
+to its own count and one to that of the kernel it launched).
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("rmat_edges", "feistel_perm", "relabel_gather", "bucket_hist", "flash_attention")
-LAUNCHES = {name: 0 for name in KERNELS}
+# the two kernels behind the flash_attention wrapper, each also counted on its own
+FLASH_KERNELS = ("flash_attention_decode", "flash_attention_prefill")
+LAUNCHES = {name: 0 for name in KERNELS + FLASH_KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,15 +42,14 @@ _SIGNATURES = {
     "feistel_perm_launch": [_P, _P, _LL, _I, _I, ctypes.POINTER(_U), _P],
     "relabel_gather_launch": [_P, _P, _P, _LL, _LL, _LL, _P],
     "bucket_hist_launch": [_P, _LL, _I, _P, _I, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, ctypes.c_float, _P],
+    "flash_attention_launch": [_P] * 8 + [_I] * 13 + [ctypes.c_float, _P],
 }
 
 _lib = None
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 

@@ -13,24 +13,30 @@ masked by the same inequality, so k and v may be a layer's whole
 [B, Hkv, max_len, D] cache.  A row with every key masked gives 0, as the
 Pallas kernel does.
 
-The kernel (`csrc/attention_kernels.cu`) takes f32 or bf16 with D in
-{16, 32, 64, 128}; its design and bounds are noted in the source.  bf16
-with at least 16 queries (prefill) runs its tensor-core form; otherwise
-(decode, f32) its scalar form, and where that grid would not fill the card
-the wrapper splits the keys over blocks and a combine pass merges them.
-Each call counts as one launch of `flash_attention`.
+The kernels (`csrc/attention_kernels.cu`) take f32 or bf16 with D in
+{16, 32, 64, 128}; their designs and bounds are noted in the source.  bf16
+with at least 16 queries and D in {64, 128} (prefill) runs the wgmma + TMA
+kernel; everything else (decode, f32, bf16 with D < 64) runs the split-KV
+decode kernel, which takes any Sq.  That is a dispatch by shape (`plan`),
+not a fallback.  The decode kernel's key chunks and scratch come from
+`plan` too; its chunk merge happens inside the same launch.  Each call
+counts as one launch of `flash_attention`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)
-KERNEL_ROWS = 16                   # (query head, query) rows of one kernel block
-SPLIT_KEYS = 256                   # keys of one split-KV block (kSplitKeys in the source)
-MMA_MIN_QUERIES = 16               # bf16 with this many queries takes the tensor-core kernel
+KERNEL_ROWS = 16                   # (query head, query) rows of one decode block
+DECODE_TILE_KEYS = 32              # keys of one decode tile (kDecKeys in the source)
+DECODE_BLOCKS_PER_SM = 4           # decode blocks per SM if every cache were full
+PREFILL_MIN_QUERIES = 16           # bf16 with this many queries takes the prefill kernel
+PREFILL_HEAD_DIMS = (64, 128)      # head dims of the prefill kernel's swizzled tiles
 PLAIN_Q_CHUNK = 1024               # queries per chunk of the plain version (its memory bound)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Limits of `row_error` for the kernel against its plain version.  f32: the
@@ -97,6 +103,58 @@ def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(rel.max()) if rel.numel() else 0.0
 
 
+class Plan(NamedTuple):
+    """How one kernel call is laid out (pure shape arithmetic, no device)."""
+    kernel: str        # "prefill" or "decode"
+    bq: int            # decode: queries per block (g * bq <= KERNEL_ROWS)
+    splits: int        # decode: key chunks per (sequence, kv head, query tile)
+    chunk: int         # decode: keys per chunk, a multiple of DECODE_TILE_KEYS
+    groups: int        # decode: (sequence, kv head, query tile) triples
+    rows: int          # decode: rows of a group, g * bq
+
+    @property
+    def scratch_rows(self) -> int:
+        """Rows of the decode scratch: part_acc [rows, D] and part_ml [rows, 2]
+        in f32 (0 when no chunk merge is needed)."""
+        return self.groups * self.splits * self.rows if self.splits > 1 else 0
+
+
+def plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
+         sms: int) -> Plan:
+    """The kernel and decode layout of a call.  Prefill: bf16, at least
+    PREFILL_MIN_QUERIES queries, D in PREFILL_HEAD_DIMS, some key.  Decode:
+    the rest, with the keys split so that about DECODE_BLOCKS_PER_SM blocks
+    per SM would exist if every cache were full (blocks past a slot's
+    frontier exit at once, so a half-full wave keeps about 2 per SM); the
+    host never reads the offsets."""
+    g = Hq // Hkv
+    bq = max(1, min(KERNEL_ROWS // g, Sq))
+    qtiles = -(-Sq // bq)
+    groups = B * Hkv * qtiles
+    if dtype == torch.bfloat16 and Sq >= PREFILL_MIN_QUERIES and D in PREFILL_HEAD_DIMS \
+            and Skv > 0:
+        return Plan("prefill", bq, 1, 0, groups, g * bq)
+    tiles = max(1, -(-Skv // DECODE_TILE_KEYS))
+    splits = min(tiles, max(1, -(-DECODE_BLOCKS_PER_SM * sms // groups)))
+    chunk = DECODE_TILE_KEYS * -(-tiles // splits)
+    splits = max(1, -(-Skv // chunk))
+    return Plan("decode", bq, splits, chunk, groups, g * bq)
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The decode kernel's int32 chunk counters for one stream: zero, and left
+    zero by every call (the last block of a group resets its counter)."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale=None, offset=None) -> torch.Tensor:
     """GQA attention [B, Hq, Sq, D]: the plain version for CPU tensors, the
@@ -133,27 +191,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif offset is not None:
         offset_scalar = int(offset)
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
-    bq = max(1, min(KERNEL_ROWS // g, Sq))
-    # the scalar kernel splits the keys over blocks when (B, Hkv, q tiles)
-    # alone would not fill the card; the tensor-core kernel never does
-    splits = 1
-    tensor_cores = q.dtype == torch.bfloat16 and Sq >= MMA_MIN_QUERIES
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    if not tensor_cores and -(-Sq // bq) * Hkv * B < sms and Skv > SPLIT_KEYS:
-        splits = -(-Skv // SPLIT_KEYS)
-    part_acc = part_ml = None
-    if splits > 1:
-        part_acc = torch.empty((splits, B, Hq, Sq, D), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((splits, B, Hq, Sq, 2), dtype=torch.float32, device=q.device)
+    p = plan(q.dtype, B, Hq, Hkv, Sq, Skv, D, sms)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_acc = part_ml = counters = None
+    n_acc = p.scratch_rows
+    if n_acc:
+        part_acc = torch.empty((n_acc, D), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((n_acc, 2), dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, stream, p.groups)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = build.library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr() if splits > 1 else None,
-            part_ml.data_ptr() if splits > 1 else None,
+            part_acc.data_ptr() if n_acc else None, part_ml.data_ptr() if n_acc else None,
+            counters.data_ptr() if n_acc else None,
             offsets.data_ptr() if offsets is not None else None, offset_scalar,
-            B, Hq, Hkv, Sq, Skv, D, bq, splits, _DTYPES[q.dtype], int(causal), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            B, Hq, Hkv, Sq, Skv, D, p.bq, p.splits, p.chunk, _DTYPES[q.dtype],
+            int(p.kernel == "prefill"), int(causal), float(scale), stream)
     build.check(err, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
+    build.LAUNCHES[f"flash_attention_{p.kernel}"] += 1
     return out

@@ -1,4 +1,5 @@
-"""Per-thread instruction counts of the built kernels, read from their SASS.
+"""What the build made of the kernels: instruction counts and opcodes read
+from their SASS, and registers and spills read from `ptxas -v`.
 
 `listing()` runs `cuobjdump -sass` on the built library (and keeps the text
 beside it, `build/kernels/libgraph_kernels_<sha>.sass`); `per_item_ops()`
@@ -12,6 +13,11 @@ per warp, not per thread), `NOP`, and the padding after the last `EXIT`.
                         from above)
   grid-stride loop      the instructions of the loop that loads from global
                         memory, divided by the loads in it (one per item)
+
+`opcodes()` gives the base opcodes of each function whose name holds a
+kernel's name (so a check can ask whether the prefill kernel issues HGMMA and
+UTMALDG); `ptxas_usage()` parses the `ptxas -v` report that `build` keeps
+beside each library.
 """
 
 from __future__ import annotations
@@ -19,13 +25,16 @@ from __future__ import annotations
 import re
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 from .build import build, cuda_tool
 
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
 _TARGET = re.compile(r"\bBRA(?:\.\w+)*\s+(0x[0-9a-f]+)")
+_PTXAS_FUNC = re.compile(r"(?:Compiling entry function|Function properties for)\s+'?([^'\s]+)'?")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
 def listing(lib: Optional[Path] = None) -> str:
@@ -79,3 +88,33 @@ def per_item_ops(text: str, kernel: str) -> int:
                 return -(-sum(_counted(o) for o in loop) // loads)
     last_exit = max(i for i, (_, op, _) in enumerate(body) if op == "EXIT")
     return sum(_counted(op) for _, op, _ in body[:last_exit + 1])
+
+
+def opcodes(text: str, kernel: str) -> Dict[str, Set[str]]:
+    """function name -> its base opcodes (before the first '.'), for every
+    function whose name holds `kernel`."""
+    return {name: {op.split(".")[0] for _, op, _ in body}
+            for name, body in _functions(text).items() if kernel in name}
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """function name -> registers, stack frame and spill bytes, from a
+    `ptxas -v` report."""
+    usage: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = _PTXAS_FUNC.search(line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = _PTXAS_STACK.search(line)
+        if m:
+            usage[name].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return usage

@@ -68,11 +68,15 @@ def test_relabel_gather_kernel_matches_plain(cuda, base):
 
 # flash_attention: (b) the decode wave at full width (bf16, per-slot offsets),
 # (c) non-causal with ragged Sq / Skv (f32), (d) the smoke configs' D 16 (f32),
-# the split-KV path (few blocks, long keys) with ragged chunks, and the
-# tensor-core path (bf16, >= 16 queries) with ragged tiles and GQA group 5.
-# Each output row is held to its error relative to its own largest value,
-# at flash_attention.TOLERANCE: f32 1e-5 (the sum order differs); bf16 2^-6
-# (two bf16 ulps of the row's largest value).
+# the decode kernel's split-KV path (few blocks, long keys) with ragged
+# chunks, decode waves with GQA groups 1, 4 and 5 whose slots sit at offset
+# 0, on a 32-key tile edge, on a 128-key chunk edge, at the last key and at
+# or past Skv (idle slots), and the prefill kernel (bf16, >= 16 queries,
+# D >= 64) with Sq not a multiple of its 64-row tile, against a cache at
+# offsets > 0, non-causal, and with GQA group 5; bf16 prefill with D 16
+# takes the decode kernel.  Each output row is held to its error relative
+# to its own largest value, at flash_attention.TOLERANCE: f32 1e-5 (the sum
+# order differs); bf16 2^-6 (two bf16 ulps of the row's largest value).
 FLASH_CASES = {
     "b_decode_wave": (8, 16, 8, 1, 4096, 128, "offsets", True, torch.bfloat16),
     "c_noncausal_ragged": (2, 16, 8, 1000, 1531, 128, None, False, torch.float32),
@@ -81,6 +85,18 @@ FLASH_CASES = {
     "split_kv_noncausal": (1, 2, 1, 1, 700, 32, None, False, torch.float32),
     "tensor_cores_ragged": (2, 10, 2, 37, 100, 64, [0, 50], True, torch.bfloat16),
     "tensor_cores_noncausal": (1, 4, 4, 100, 77, 32, None, False, torch.bfloat16),
+    "decode_g1_edges": (8, 8, 8, 1, 2048, 128, [0, 31, 32, 127, 128, 2047, 2048, 5000], True,
+                        torch.bfloat16),
+    "decode_g4_edges": (4, 16, 4, 1, 3000, 64, [0, 479, 480, 2999], True, torch.bfloat16),
+    "decode_g5_idle": (4, 40, 8, 1, 4096, 128, [0, 959, 4095, 4096], True, torch.bfloat16),
+    "decode_g5_f32": (2, 10, 2, 3, 700, 128, [96, 699], True, torch.float32),
+    "prefill_sq16": (1, 16, 8, 16, 16, 128, None, True, torch.bfloat16),
+    "prefill_sq37": (1, 16, 8, 37, 37, 128, None, True, torch.bfloat16),
+    "prefill_sq100": (2, 16, 8, 100, 100, 128, None, True, torch.bfloat16),
+    "prefill_sq129": (1, 16, 8, 129, 129, 128, None, True, torch.bfloat16),
+    "prefill_cache_offset": (2, 16, 8, 100, 4096, 128, [300, 1000], True, torch.bfloat16),
+    "prefill_noncausal": (2, 16, 8, 129, 300, 128, None, False, torch.bfloat16),
+    "prefill_bf16_d16": (2, 4, 2, 37, 64, 16, [3, 27], True, torch.bfloat16),
 }
 
 
@@ -110,11 +126,13 @@ def test_flash_attention_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["b_decode_wave", "decode_g5_idle", "prefill_cache_offset"])
 @pytest.mark.parametrize("fault", ["scale", "drop_last_keys"])
-def test_flash_attention_check_rejects_planted_faults(cuda, fault):
-    """The decode wave run with the softmax scale 5 % off, or with the last
-    32 keys of each row dropped, fails the check the kernel passes."""
-    q, k, v, offset, causal = _flash_inputs("b_decode_wave", cuda)
+def test_flash_attention_check_rejects_planted_faults(cuda, fault, name):
+    """A decode wave or a prefill against the cache run with the softmax
+    scale 5 % off, or with the last 32 keys of each row dropped, fails the
+    check the kernel passes."""
+    q, k, v, offset, causal = _flash_inputs(name, cuda)
     want = ops.flash_attention_plain(q, k, v, causal=causal, offset=offset)
     if fault == "scale":
         bad = ops.flash_attention(q, k, v, causal=causal, offset=offset,
@@ -135,5 +153,6 @@ def test_rebuilt_library_loads_every_kernel(cuda, tmp_path, monkeypatch):
     for name in build.KERNELS:
         assert any(hasattr(lib, f"{name}_launch") for lib in libs), name
     logs = "".join(p.with_suffix(".log").read_text() for p in paths)
-    assert "flash_attention_kernel" in logs and "rmat_edges_kernel" in logs
+    assert "flash_attention_decode_kernel" in logs and "flash_attention_prefill_kernel" in logs
+    assert "rmat_edges_kernel" in logs
     assert build.build() == paths and not list(tmp_path.glob("*.tmp"))

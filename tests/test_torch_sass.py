@@ -3,7 +3,7 @@ on SASS listings written in `cuobjdump -sass`'s format."""
 
 import pytest
 
-from repro_torch.kernels.sass import per_item_ops
+from repro_torch.kernels.sass import opcodes, per_item_ops, ptxas_usage
 
 LISTING = """
 \tcode for sm_90a
@@ -84,3 +84,58 @@ def test_per_item_ops_needs_one_function():
         per_item_ops(LISTING, "rmat_edges_kernel")
     with pytest.raises(KeyError):
         per_item_ops(LISTING, "feistel_perm_kernel")
+
+
+FLASH_LISTING = """
+\t\tFunction : _ZN12_GLOBAL__N_130flash_attention_prefill_kernelILi128EEEv14CUtensorMap_st
+        /*0000*/                   SYNCS.EXCH.64 URZ, [UR4], UR6 ;
+        /*0010*/                   UTMALDG.3D [UR8], [UR10] ;
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0030*/                   EXIT ;
+\t\t..........
+
+\t\tFunction : _ZN12_GLOBAL__N_129flash_attention_decode_kernelI13__nv_bfloat16Li128EEEvPKT_
+        /*0000*/                   UBLKCP.S.G [UR4], [UR6], UR8 ;
+        /*0010*/              @!P0 LDS.128 R4, [R2] ;
+        /*0020*/                   EXIT ;
+\t\t..........
+
+\t\tFunction : _ZN12_GLOBAL__N_129flash_attention_decode_kernelIfLi16EEEvPKT_
+        /*0000*/                   LDGSTS.E.128 [R2], desc[UR4][R4.64] ;
+        /*0010*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("flash_attention_prefill_kernel", [{"SYNCS", "UTMALDG", "HGMMA", "EXIT"}]),
+    ("flash_attention_decode_kernel", [{"UBLKCP", "LDS", "EXIT"}, {"LDGSTS", "EXIT"}]),
+    ("no_such_kernel", []),
+])
+def test_opcodes_per_function(kernel, want):
+    got = opcodes(FLASH_LISTING, kernel)
+    assert list(got.values()) == want
+    assert all(kernel in name for name in got)
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6decodeILi128EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z6decodeILi128EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 152 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z7prefillILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z7prefillILi128EEvv
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 8 bytes cumulative stack size
+"""
+
+
+@pytest.mark.parametrize("name,want", [
+    ("_Z6decodeILi128EEvPKf", {"registers": 152, "stack_bytes": 0, "spill_stores": 0,
+                               "spill_loads": 0}),
+    ("_Z7prefillILi128EEvv", {"registers": 168, "stack_bytes": 8, "spill_stores": 4,
+                              "spill_loads": 8}),
+])
+def test_ptxas_usage(name, want):
+    usage = ptxas_usage(PTXAS_LOG)
+    assert set(usage) == {"_Z6decodeILi128EEvPKf", "_Z7prefillILi128EEvv"}
+    assert usage[name] == want
