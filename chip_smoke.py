@@ -15,13 +15,20 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    1e-5 in f32 (the sum order differs), 2^-6 in bf16 (two bf16 ulps of the
    row's largest value), in cases (a)-(i), and planted faults at the main
    path's shapes (the softmax scale 5 % off; the last 32 keys of each row
-   dropped) must exceed that limit.  Before that, the attention library's
-   `ptxas -v` report and SASS give each kernel instance's registers and
-   spills, and the run fails unless every prefill instance issues HGMMA
-   and UTMALDG and every decode instance an asynchronous copy (UBLKCP or
-   LDGSTS);
+   dropped) must exceed that limit.  `bucket_hist` is timed at the main
+   shape, at walks_main's call, at the walk shape of capacity factor 4, at
+   k 64 and with no ids (its fixed cost, beside an empty kernel), each with
+   bincount beside it; it is checked on two slices that start off a 16-byte
+   boundary, and a planted fault (one id skipped) must fail the comparison.
+   Before that, the attention library's `ptxas -v` report and SASS give
+   each kernel instance's registers and spills, and the run fails unless
+   every prefill instance issues HGMMA and UTMALDG and every decode instance
+   an asynchronous copy (UBLKCP or LDGSTS), and unless no `bucket_hist`
+   instance spills;
 2. variant phase: every generate() variant at scale 16, nb 8, on the card
-   and on the CPU, bit-equal;
+   and on the CPU, bit-equal; then walks_parity: distributed_walks (length
+   80, 256 walkers per shard) and WalkLoader batches 0-2 on that graph,
+   card == CPU bit for bit;
 3. main phase: generate(GraphConfig(scale=26, nb=8)) (Graph500 "toy") with
    the defaults (paper shuffle, ring relabel, sorted CSR), once with an
    empty allocator cache and once warm, launch counts set to 0 just before
@@ -29,6 +36,15 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    communication-free variant (shuffle_variant="recompute"), the main path's
    user of the Feistel kernel.  The graph kernels' bounds count the
    per-thread SASS instructions of this build (`repro_torch.kernels.sass`);
+   then walks_main: distributed_walks over the warm run's CSR, 2^20 walkers
+   per shard (2^23 walks), length 80, capacity factor 8, launch counts set
+   to 0 just before and read just after, zero drops, length x nb
+   bucket_hist launches, every hop replayed on the card by code that shares
+   nothing with the sampler; walk ms, hops/s and peak memory; then the same
+   walk under torch.profiler (`walks_trace`: busy share, device time by
+   kernel); then loader_main: a WalkLoader over that CSR on the card (the
+   global CSR assembled there, held to the sharded one; build and batch ms,
+   peak memory);
 4. serve_parity phase: the serve path's smoke configs (internlm2, codeqwen;
    f32) on the card and on the CPU: prefill and decode logits within 1e-4,
    the Engine's tokens equal;
@@ -52,6 +68,7 @@ repository beside it, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +99,17 @@ SERVE_SEED = 0
 TRACE_PROMPT, TRACE_NEW_TOKENS = 512, 32   # serve_trace's window
 PARITY_ARCHS = ("internlm2-1.8b", "codeqwen1.5-7b")
 PARITY_TOL = 1e-4                  # f32 logits, card vs CPU: the sum order differs
+WALK_LENGTH = 80                   # DeepWalk's walk length (Perozzi et al., KDD 2014)
+WALK_WALKERS = 1 << 20             # walkers per shard in walks_main: 2^23 walks
+# Before the first hop every walker is still on the shard that launched it,
+# so all W walkers of a shard go to one receiver: the pair capacity
+# ceil(W * factor / nb) holds them only when factor >= nb.  walks_main needs
+# zero drops (factor nb); walks_parity runs factor 4, which drops half of
+# them at the first hop, so that card == CPU covers the drops too.
+WALK_CAPACITY_FACTOR = NB
+WALK_PARITY_CAPACITY_FACTOR = 4
+WALK_SEED = 0
+WALK_PARITY_WALKERS = 256          # walks_parity, on the scale-16 graph
 
 
 def require(cond: bool, msg: str) -> None:
@@ -100,6 +128,54 @@ def nvidia_smi(query: str) -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def time_ms(fn, reps=5):
+    """Median CUDA-event time of fn() over `reps` runs after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        # the card sleeps while the host enqueues the call, so the
+        # wrapper's host time (~0.1 ms) is not counted as kernel time
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bucket_hist_shapes(eps: int):
+    """The timed bucket_hist cases (also timed by scripts/time_bucket_hist.py):
+    (case, ids, k, share of the ids that are the pad value k, or None for ids
+    uniform over the k + 1 values).  redistribute's call is one shard's
+    owners (eps ids, k = nb); walks_main's is one shard's rows, 7 in 8 of
+    them the pad value; the walk at capacity factor 4 has 3 in 4; k 64 runs
+    the shared-memory histograms; no ids gives the fixed cost of a call."""
+    walk_rows = -(-WALK_WALKERS * WALK_CAPACITY_FACTOR // NB) * NB
+    walk_pad = 1 - WALK_WALKERS / walk_rows
+    return [("main: one shard's owners, k 8", eps, NB, 0.0),
+            (f"walks_main's call: 2^{walk_rows.bit_length() - 1} ids, k 8, "
+             f"{walk_pad:.1%} pad value", walk_rows, NB, walk_pad),
+            ("walk at capacity factor 4: 2^22 ids, k 8, 75 % pad value", 1 << 22, NB, 0.75),
+            ("2^22 ids, k 64, pad value 1 in 65", 1 << 22, 64, None),
+            ("fixed cost: 0 ids, k 8", 0, NB, 0.0)]
+
+
+def bucket_ids(torch, g, dev, n: int, k: int, pad):
+    """int32 ids for one bucket_hist_shapes case, drawn from generator g."""
+    if pad is None:
+        return torch.randint(0, k + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+    ids = torch.randint(0, k, (n,), generator=g, device=dev, dtype=torch.int32)
+    if pad:
+        ids[torch.rand(n, generator=g, device=dev) < pad] = k
+    return ids
+
+
 def main() -> int:
     import torch
 
@@ -113,7 +189,7 @@ def main() -> int:
     from repro_torch.core import validate as V
     from repro_torch.core.pipeline import generate, generate_baseline_hash, generate_edges
     from repro_torch.core.types import GraphConfig
-    from repro_torch.kernels import build, ops, sass
+    from repro_torch.kernels import bucket, build, ops, sass
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi("name,power.limit")
@@ -134,31 +210,24 @@ def main() -> int:
     main_cfg = GraphConfig(scale=MAIN_SCALE, nb=NB)
     eps, B, rounds = main_cfg.edges_per_shard, main_cfg.bucket_size, main_cfg.feistel_rounds
     listing = sass.listing(graph_lib)
+    # bucket_hist: the register-bin instance of k 8 (main and walk shapes) and
+    # the shared-memory one (k 64)
+    hist_k8 = f"bucket_hist_kernelILi{bucket.plan(1, NB, 1).bins}E"
+    hist_k64 = f"bucket_hist_kernelILi{bucket.plan(1, 64, 1).bins}E"
     ops_per_item = {
         "rmat_edges": sass.per_item_ops(listing, f"rmat_edges_kernelILi{MAIN_SCALE}E"),
         "feistel_perm": sass.per_item_ops(listing, f"feistel_perm_kernelILi{rounds}E"),
         "relabel_gather": sass.per_item_ops(listing, "relabel_gather_kernel"),
-        "bucket_hist": sass.per_item_ops(listing, "bucket_hist_kernel"),
+        hist_k8: sass.per_item_ops(listing, hist_k8),
+        hist_k64: sass.per_item_ops(listing, hist_k64),
     }
+    usage = sass.ptxas_usage(graph_lib.with_suffix(".log").read_text())
+    hist_usage = {re.search(r"bucket_hist_kernelI(.*?)EE", fn).group(1): u
+                  for fn, u in usage.items() if "bucket_hist_kernel" in fn}
     emit({"phase": "sass", "listing": graph_lib.with_suffix(".sass").name,
-          "per_item_ops": ops_per_item})
-
-    def time_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            # the card sleeps while the host enqueues the call, so the
-            # wrapper's host time (~0.1 ms) is not counted as kernel time
-            torch.cuda._sleep(SLEEP_CYCLES)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
+          "per_item_ops": ops_per_item, "bucket_hist_ptxas": hist_usage})
+    require(all(u.get("spill_stores") == 0 and u.get("spill_loads") == 0
+                for u in hist_usage.values()), f"a bucket_hist instance spills: {hist_usage}")
 
     def max_abs(got, want) -> int:
         if isinstance(got, tuple):
@@ -177,10 +246,13 @@ def main() -> int:
     # 1. kernel phase
     # ------------------------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(1234)
-    summary = {}
+    summary, shapes = {}, {}
 
     def check_kernel(name, case, kernel_fn, plain_fn, timed=False, n_bytes=0, n_ops=0,
-                     library_fn=None, size=None):
+                     library_fn=None, size=None, main=True):
+        """Kernel == plain version; timed cases also give times and a bound.
+        The main path's case goes into the summary, other timed shapes into
+        its "shapes" list."""
         got, want = kernel_fn(), plain_fn()
         err = max_abs(got, want)
         require(err == 0, f"{name} [{case}] differs from its plain version: max |diff| {err}")
@@ -190,7 +262,10 @@ def main() -> int:
             line["plain_ms"] = time_ms(plain_fn, reps=3)
             line["library_ms"] = time_ms(library_fn) if library_fn else None
             line["bound_ms"], line["bound_by"] = bound(n_bytes, n_ops)
-            summary[name] = line
+            if main:
+                summary[name] = line
+            else:
+                shapes.setdefault(name, []).append(line)
         emit(line)
         del got, want
 
@@ -262,20 +337,39 @@ def main() -> int:
     emit({"kernel": "relabel_gather", "case": "empty segment", "n": 0, "max_abs_diff": 0})
     del field, chunk, seg, odd
 
-    # bucket_hist: redistribute's call (one shard's owners, k = nb = 8),
-    # and k in {2, 64} with the pad value k mixed in.
-    dest = torch.randint(0, NB, (eps,), generator=g, device=dev, dtype=torch.int32)
-    check_kernel("bucket_hist", "main: one shard's owners, k 8",
-                 lambda: ops.bucket_hist(dest, NB), lambda: ops.bucket_hist_plain(dest, NB),
-                 timed=True, n_bytes=4 * dest.numel() + 4 * NB,
-                 n_ops=ops_per_item["bucket_hist"] * dest.numel(),
-                 library_fn=lambda: torch.bincount(dest, minlength=NB), size=dest.numel())
-    del dest
+    # bucket_hist: the timed shapes (bucket_hist_shapes), each beside
+    # bincount (which counts the pad value as one more bin), the last (no
+    # ids) beside an empty kernel; k in {2, 8, 64} with the pad value mixed
+    # in; two slices whose start is not 16-byte aligned; and a planted fault:
+    # the kernel run without one id that counts must differ.
+    for i, (case, n, k, pad) in enumerate(bucket_hist_shapes(eps)):
+        dk = bucket_ids(torch, g, dev, n, k, pad)
+        per_item = ops_per_item[f"bucket_hist_kernelILi{bucket.plan(1, k, 1).bins}E"]
+        check_kernel("bucket_hist", case, lambda: ops.bucket_hist(dk, k),
+                     lambda: ops.bucket_hist_plain(dk, k), timed=True, main=i == 0,
+                     n_bytes=4 * (dk.numel() + k), n_ops=per_item * dk.numel(),
+                     library_fn=lambda: torch.bincount(dk, minlength=k), size=dk.numel())
+    empty_ms = time_ms(lambda: torch.cuda._sleep(0))
+    shapes["bucket_hist"][-1]["empty_kernel_ms"] = empty_ms
+    emit({"kernel": "bucket_hist", "case": "an empty kernel (torch.cuda._sleep(0)), the floor "
+          "of the fixed cost", "empty_kernel_ms": empty_ms})
     for k in (2, 8, 64):
         dk = torch.randint(0, k + 1, (1_000_003,), generator=g, device=dev, dtype=torch.int32)
         check_kernel("bucket_hist", f"k {k} with pad value k, n 1000003",
                      lambda: ops.bucket_hist(dk, k), lambda: ops.bucket_hist_plain(dk, k),
                      size=dk.numel())
+    for offset in (1, 3):
+        part = dk[offset:]
+        require(part.data_ptr() % 16 != 0, "the slice was meant to start off a 16-byte boundary")
+        check_kernel("bucket_hist", f"k 64, slice from offset {offset} (not 16-byte aligned)",
+                     lambda: ops.bucket_hist(part, 64), lambda: ops.bucket_hist_plain(part, 64),
+                     size=part.numel())
+    dk[0] = 5
+    fault = max_abs(ops.bucket_hist(dk[1:], 64), ops.bucket_hist_plain(dk, 64))
+    require(fault > 0, "bucket_hist: a planted fault (one id skipped) passes the comparison")
+    emit({"kernel": "bucket_hist", "case": "planted fault: the first id (5) skipped",
+          "max_abs_diff": fault, "rejected": True})
+    del dk, part
     flash = flash_phase(torch, ops, dev, g, time_ms)
     torch.cuda.empty_cache()
 
@@ -312,6 +406,7 @@ def main() -> int:
     emit({"phase": "variant", "baseline_hash": True, "scale": VARIANT_SCALE, "equal": True,
           "seconds": time.perf_counter() - t_var})
     del hc, hd, pc, pd
+    walks_parity_phase(torch, dev)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -321,7 +416,9 @@ def main() -> int:
     # ------------------------------------------------------------------
     main_counts = {}
 
-    def run_main(label, shuffle_variant, cold):
+    def run_main(label, shuffle_variant, cold, keep_csr=False):
+        """Launch counts of one generate(), and with keep_csr its CSR (on the
+        host, so that validation has the card's memory)."""
         torch.cuda.synchronize()
         if cold:
             torch.cuda.empty_cache()
@@ -355,6 +452,7 @@ def main() -> int:
                   "ownership": V.check_ownership(res.owned.src, res.owned.valid, main_cfg)}
         csr_checks = V.check_csr(res.csr, res.owned, main_cfg)
         checks.update({f"csr_{k}": v for k, v in csr_checks.items()})
+        kept = type(res.csr)(*(t.cpu() for t in res.csr)) if keep_csr else None
         owned_total = int(res.csr.num_edges.sum())
         checks["edge_count"] = owned_total == main_cfg.m
         pv, new_src, new_dst = res.pv, res.src, res.dst
@@ -368,17 +466,21 @@ def main() -> int:
         line["peak_gib_with_validation"] = torch.cuda.max_memory_allocated(dev) / 2**30
         emit(line)
         require(all(checks.values()), f"{label}: validation failed {checks}")
-        return counts
+        return counts, kept
 
-    main_counts["main_cold"] = run_main("main_cold", "paper", cold=True)
-    main_counts["main"] = run_main("main", "paper", cold=False)
-    main_counts["main_recompute"] = run_main("main_recompute", "recompute", cold=False)
+    main_counts["main_cold"], _ = run_main("main_cold", "paper", cold=True)
+    main_counts["main"], main_csr = run_main("main", "paper", cold=False, keep_csr=True)
+    main_counts["main_recompute"], _ = run_main("main_recompute", "recompute", cold=False)
     require(main_counts["main_cold"] == main_counts["main"], "cold and warm runs launched differently")
     for name in ("rmat_edges", "relabel_gather", "bucket_hist"):
         require(main_counts["main"][name] > 0, f"main path never launched {name}")
     require(main_counts["main_recompute"]["feistel_perm"] > 0,
             "recompute main path never launched feistel_perm")
-
+    torch.cuda.empty_cache()
+    main_counts["walks_main"] = walks_main_phase(torch, ops, dev, main_cfg, main_csr)
+    torch.cuda.empty_cache()
+    loader_main_phase(torch, dev, main_cfg, main_csr)
+    del main_csr
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -404,23 +506,232 @@ def main() -> int:
     kernels = []
     for name in [n for n in build.KERNELS if n != "flash_attention"] + list(build.FLASH_KERNELS):
         s = summary[name]
-        launches = sum(counts[name] for label, counts in main_counts.items() if label != "main_cold")
+        by_path = {label: counts[name] for label, counts in main_counts.items()
+                   if label != "main_cold"}
+        launches = sum(by_path.values())
         require(launches > 0, f"{name} was launched no time on the main paths")
         entry = {"name": name, "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/" + (
                      "attention_kernels.cu" if name.startswith("flash") else "graph_kernels.cu"),
-                 "replaces": sources[name], "launches": launches,
+                 "replaces": sources[name], "launches": launches, "launches_by_path": by_path,
                  "max_abs_err": s["max_abs_diff"], "ms": s["kernel_ms"],
                  "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                  "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
         if name.startswith("flash"):
             entry.update({k: s[k] for k in ("case", "row_error", "tolerance")})
+        if name in shapes:
+            entry["case"] = s["case"]
+            entry["shapes"] = [{"case": x["case"], "max_abs_err": x["max_abs_diff"],
+                                "ms": x["kernel_ms"], "plain_ms": x["plain_ms"],
+                                "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+                                "library_ms": x["library_ms"],
+                                **{k: x[k] for k in ("empty_kernel_ms",) if k in x}}
+                               for x in shapes[name]]
         kernels.append(entry)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def walks_parity_phase(torch, dev):
+    """The walk corpus at the variant scale: distributed_walks on the
+    scale-16 nb-8 graph, length 80, 256 walkers per shard, capacity factor
+    4 (half the walkers dropped at the first hop), on the card (whose every hop runs the bucket_hist kernel once per
+    shard) and on the CPU, equal bit for bit; then the WalkLoader's batches
+    0-2, sampled on the card and on the CPU, equal."""
+    from repro_torch.core.pipeline import generate
+    from repro_torch.core.types import GraphConfig
+    from repro_torch.data import LoaderConfig, WalkLoader, distributed_walks
+    from repro_torch.kernels import ops
+
+    cfg = GraphConfig(scale=VARIANT_SCALE, nb=NB)
+    t = time.perf_counter()
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        csr = generate(cfg, device=d).csr
+        before = ops.LAUNCHES["bucket_hist"]
+        walks = distributed_walks(cfg, csr.offv, csr.adjv, length=WALK_LENGTH, seed=WALK_SEED,
+                                  walkers_per_shard=WALK_PARITY_WALKERS,
+                                  capacity_factor=WALK_PARITY_CAPACITY_FACTOR)
+        launched = ops.LAUNCHES["bucket_hist"] - before
+        require(launched == (WALK_LENGTH * NB if d.type == "cuda" else 0),
+                f"walks_parity: {launched} bucket_hist launches on {d}")
+        loader = WalkLoader(cfg, csr, LoaderConfig(), device=d)
+        got[d.type] = walks, [loader.batch(step) for step in range(3)]
+    (walks_card, batches_card), (walks_cpu, batches_cpu) = got["cuda"], got["cpu"]
+    for f, a, b in zip(("hist", "valid", "wid", "dropped"), walks_card, walks_cpu):
+        require(a.is_cuda and torch.equal(a.cpu(), b), f"walks_parity: {f} differs card vs CPU")
+    for step, (a, b) in enumerate(zip(batches_card, batches_cpu)):
+        for f in ("tokens", "labels"):
+            require(a[f].is_cuda and torch.equal(a[f].cpu(), b[f]),
+                    f"walks_parity: WalkLoader batch {step} {f} differs card vs CPU")
+    emit({"phase": "walks_parity", "scale": VARIANT_SCALE, "nb": NB, "length": WALK_LENGTH,
+          "walkers_per_shard": WALK_PARITY_WALKERS, "capacity_factor": WALK_PARITY_CAPACITY_FACTOR,
+          "live_walks": int(walks_cpu[1].sum()), "dropped": int(walks_cpu[3]),
+          "walks_equal": True, "loader_batches_equal": 3, "seconds": time.perf_counter() - t})
+
+
+def _mul32(x, c):
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a uint32 constant c,
+    in 16-bit halves so that no int64 product overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def _mix32(x):
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _walk_rand(seed, walker, step):
+    """The walk RNG from its definition: mix32(mix32(w ^ seed) + step * golden)."""
+    s = seed & 0xFFFFFFFF
+    return _mix32((_mix32(walker ^ s) + ((step * 0x9E3779B9) & 0xFFFFFFFF)) & 0xFFFFFFFF)
+
+
+def replay_walks(torch, hist, wid, offv, adjv, cfg, walkers, seed):
+    """Mismatches of every live walk against a replay on the card that shares
+    no code with distributed_walks: each walker id once, each start from the
+    start rule, and each hop t+1 recomputed from hop t with the walk RNG and
+    the CSR row of vertex t, or the sink teleport rand % n."""
+    B, n = cfg.bucket_size, cfg.n
+    offv = offv.view(cfg.nb, B + 1).long()
+    adjv = adjv.view(cfg.nb, -1)
+    w = wid.long() & 0xFFFFFFFF
+    bad = (torch.sort(w).values != torch.arange(cfg.nb * walkers, device=w.device)).sum()
+    start = (w // walkers) * B + _walk_rand(seed ^ 0xA5A5, w, 0) % B
+    bad += (hist[:, 0].long() != start).sum()
+    for t in range(hist.shape[1] - 1):
+        v = hist[:, t].long()
+        shard, row = v // B, v % B
+        first = offv[shard, row]
+        deg = offv[shard, row + 1] - first
+        r = _walk_rand(seed, w, t + 1)
+        idx = (first + r % deg.clamp(min=1)).clamp(max=adjv.shape[1] - 1)
+        want = torch.where(deg > 0, adjv[shard, idx].long(), r % n)
+        bad += (hist[:, t + 1].long() != want).sum()
+    return int(bad)
+
+
+def walks_main_phase(torch, ops, dev, cfg, csr_host):
+    """distributed_walks on the main graph (scale 26, nb 8): 2^20 walkers per
+    shard, length 80, capacity factor 8, seed 0; launch counts set to 0 just
+    before and read just after; zero drops, every hop replayed on the card,
+    and length x nb bucket_hist launches.  Returns the launch counts."""
+    from repro_torch.data import distributed_walks
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    offv, adjv = csr_host.offv.to(dev), csr_host.adjv.to(dev)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    a.record()
+    hist, valid, wid, dropped = distributed_walks(
+        cfg, offv, adjv, length=WALK_LENGTH, seed=WALK_SEED, walkers_per_shard=WALK_WALKERS,
+        capacity_factor=WALK_CAPACITY_FACTOR)
+    b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    walk_ms = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated(dev)
+    live = int(valid.sum())
+    line = {"phase": "walks_main", "scale": cfg.scale, "nb": cfg.nb, "length": WALK_LENGTH,
+            "walkers_per_shard": WALK_WALKERS, "capacity_factor": WALK_CAPACITY_FACTOR,
+            "seed": WALK_SEED, "rows": hist.shape[0], "live_walks": live,
+            "dropped": int(dropped), "walk_ms": walk_ms, "wall_s": wall,
+            "hops_per_s": live * WALK_LENGTH / (walk_ms / 1e3),
+            "tokens": live * (WALK_LENGTH + 1), "peak_bytes": peak, "peak_gib": peak / 2**30,
+            "bucket_hist_launches": counts["bucket_hist"], "launches": counts}
+    require(int(dropped) == 0, f"walks_main: {int(dropped)} walkers dropped")
+    require(live == cfg.nb * WALK_WALKERS, f"walks_main: {live} live walks")
+    require(counts["bucket_hist"] == WALK_LENGTH * cfg.nb,
+            f"walks_main: {counts['bucket_hist']} bucket_hist launches != length x nb")
+    t = time.perf_counter()
+    line["replay_mismatches"] = replay_walks(torch, hist[valid], wid[valid], offv, adjv, cfg,
+                                             WALK_WALKERS, WALK_SEED)
+    line["replay_s"] = time.perf_counter() - t
+    emit(line)
+    require(line["replay_mismatches"] == 0, "walks_main: the replay disagrees with the walks")
+    del hist, valid, wid
+    walks_trace(torch, cfg, offv, adjv)
+    return counts
+
+
+def walks_trace(torch, cfg, offv, adjv):
+    """walks_main's walk again, under torch.profiler: the card's busy share
+    (kernel and copy time over the wall time; the profiler's host cost makes
+    the idle share an upper bound) and the device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import distributed_walks
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        distributed_walks(cfg, offv, adjv, length=WALK_LENGTH, seed=WALK_SEED,
+                          walkers_per_shard=WALK_WALKERS, capacity_factor=WALK_CAPACITY_FACTOR)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(ms for _, ms, _ in rows)
+    require(device_ms > 0, "walks_trace: the profiler saw no device time")
+    rows.sort(key=lambda r: -r[1])
+    emit({"phase": "walks_trace", "hops": WALK_LENGTH, "wall_ms": wall_ms, "device_ms": device_ms,
+          "busy_share": device_ms / wall_ms,
+          "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:14]]})
+
+
+def loader_main_phase(torch, dev, cfg, csr_host):
+    """WalkLoader over the main graph's CSR on the card (scale 26, nb 8): the
+    time to assemble the global CSR there, one batch's time (LoaderConfig's
+    defaults) and the peak memory; the global CSR is held shard by shard to
+    the sharded one, and a batch is a pure function of its step."""
+    from repro_torch.data import LoaderConfig, WalkLoader
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    csr = type(csr_host)(*(t.to(dev) for t in csr_host))
+    torch.cuda.synchronize()
+    csr_bytes = torch.cuda.memory_allocated(dev)
+    lcfg = LoaderConfig()
+    a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    a.record()
+    loader = WalkLoader(cfg, csr, lcfg, device=dev)
+    b.record()
+    batch = loader.batch(0)
+    c.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    B, nb = cfg.bucket_size, cfg.nb
+    offv_s, adjv_s = csr.offv.view(nb, B + 1).long(), csr.adjv.view(nb, -1)
+    cnt = csr.num_edges.long().tolist()
+    require(loader.offv.is_cuda and loader.adjv.is_cuda, "loader_main: the CSR left the card")
+    require(loader.offv.numel() == cfg.n + 1 and loader.adjv.numel() == sum(cnt) == cfg.m,
+            "loader_main: the global CSR has the wrong size")
+    base = 0
+    for s_ in range(nb):
+        require(torch.equal(loader.offv[s_ * B:(s_ + 1) * B + 1], offv_s[s_] + base)
+                and torch.equal(loader.adjv[base:base + cnt[s_]], adjv_s[s_, :cnt[s_]]),
+                f"loader_main: shard {s_} of the global CSR differs from the sharded one")
+        base += cnt[s_]
+    again = loader.batch(0)
+    tokens, labels = batch["tokens"], batch["labels"]
+    require(tokens.is_cuda and tuple(tokens.shape) == (lcfg.batch_size, lcfg.seq_len)
+            and torch.equal(labels[:, :-1], tokens[:, 1:])
+            and bool(((tokens >= 0) & (tokens < lcfg.vocab)).all())
+            and all(torch.equal(batch[f], again[f]) for f in ("tokens", "labels")),
+            "loader_main: a batch is malformed or not a function of its step")
+    emit({"phase": "loader_main", "scale": cfg.scale, "nb": nb, "batch_size": lcfg.batch_size,
+          "seq_len": lcfg.seq_len, "build_ms": a.elapsed_time(b), "batch_ms": b.elapsed_time(c),
+          "sharded_csr_gib": csr_bytes / 2**30, "peak_gib": peak / 2**30})
+    del loader, csr, batch, again
 
 
 def attention_build_phase(sass, lib):
@@ -430,8 +741,6 @@ def attention_build_phase(sass, lib):
     an asynchronous copy (UBLKCP, the 1-D bulk copy; or LDGSTS) in every
     decode instance.  A missing instruction or a spill in a decode instance
     fails the run."""
-    import re
-
     usage = sass.ptxas_usage(lib.with_suffix(".log").read_text())
     listing = sass.listing(lib)
     found = []

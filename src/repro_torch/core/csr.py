@@ -11,7 +11,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .redistribute import OwnedEdges
@@ -66,17 +65,20 @@ def build_csr_sorted(cfg: GraphConfig, owned: OwnedEdges) -> CSRShards:
     return CSRShards(offv.reshape(-1), adjv.reshape(-1), cnt)
 
 
-def csr_to_host(csr: CSRShards, cfg: GraphConfig):
-    """One host (offv [n+1] int64, adjv [m]) pair from the distributed CSR."""
+def csr_global(csr: CSRShards, cfg: GraphConfig):
+    """One (offv [n+1] int64, adjv [m]) pair from the distributed CSR, on its device."""
     B, nb = cfg.bucket_size, cfg.nb
-    offv_s = csr.offv.cpu().numpy().reshape(nb, B + 1)
-    adjv_s = csr.adjv.cpu().numpy().reshape(nb, -1)
-    cnt = csr.num_edges.cpu().numpy()
-    parts = [adjv_s[i, : cnt[i]] for i in range(nb)]
-    base = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
-    offv = np.concatenate([offv_s[i, :-1].astype(np.int64) + base[i] for i in range(nb)]
-                          + [[base[-1]]])
-    return offv, np.concatenate(parts) if parts else np.zeros((0,), np.int32)
+    cnt = csr.num_edges.to(torch.int64)
+    base = torch.cumsum(cnt, 0) - cnt
+    offv = csr.offv.reshape(nb, B + 1)[:, :-1].to(torch.int64) + base.reshape(-1, 1)
+    offv = torch.cat([offv.reshape(-1), cnt.sum().reshape(1)])
+    adjv_s = csr.adjv.reshape(nb, -1)
+    return offv, torch.cat([adjv_s[i, :c] for i, c in enumerate(csr.num_edges.tolist())])
+
+
+def csr_to_host(csr: CSRShards, cfg: GraphConfig):
+    """One host (offv [n+1] int64, adjv [m]) numpy pair from the distributed CSR."""
+    return tuple(t.cpu().numpy() for t in csr_global(csr, cfg))
 
 
 def csr_neighbors(csr: CSRShards, cfg: GraphConfig, v: int) -> torch.Tensor:

@@ -93,6 +93,11 @@ class GraphConfig:
         return max(1, int(math.ceil(math.log(self.n) / math.log(self.nb))))
 
 
+def owner_of(v: torch.Tensor, bucket_size: int) -> torch.Tensor:
+    """Range-partition owner: owner(v) = v // B (the paper's RP(n, nb))."""
+    return torch.div(v, bucket_size, rounding_mode="floor")
+
+
 def quadrant_thresholds(cfg: GraphConfig) -> Tuple[int, int, int]:
     """uint32 cut points of one R-MAT level: P(src bit), P(dst bit | src 0/1)."""
     two32 = float(1 << 32)

@@ -22,6 +22,8 @@ import torch
 
 from ..kernels.bucket import bucket_hist
 
+JUNK_ROWS = 1 << 16   # rows past the buckets that take dead records (a power of two)
+
 
 class Buckets(NamedTuple):
     data: torch.Tensor      # [k, capacity, ...] bucketed payload
@@ -57,17 +59,26 @@ def bucket_by_destination(data: torch.Tensor, dest: torch.Tensor, k: int, capaci
     del order, rank_sorted
     real = dest < k
     keep = (rank < capacity) & real
-    # Overflow goes to the scratch slot k*capacity, cut off below.
     slot = torch.where(keep, dest.to(torch.int64) * capacity + rank, k * capacity)
     dropped = ((rank >= capacity) & real).sum().to(torch.int32)
+    # Records that take no slot are written past the k*capacity slots and
+    # cut off below.  A caller that marks dead records (`valid`: 7 in 8 of a
+    # walk's rows) gets them spread over JUNK_ROWS rows by rank, since the
+    # card serialises writes to one row.  The others drop nothing when sized
+    # right, and the spread's three int64 passes would cost the scale-26
+    # graph path's redistribute 21 ms on an H100 (scripts/time_generate.py).
+    junk, write = 1, slot
+    if valid is not None:
+        junk, write = JUNK_ROWS, torch.where(keep, slot, slot + (rank & (JUNK_ROWS - 1)))
     del rank, keep, real
-    flat = torch.zeros((k * capacity + 1,) + tuple(data.shape[1:]), dtype=data.dtype, device=dev)
-    flat[slot] = data
-    occupied = torch.zeros(k * capacity + 1, dtype=torch.bool, device=dev)
-    occupied[slot] = True
+    tail = tuple(data.shape[1:])
+    flat = torch.zeros((k * capacity + junk,) + tail, dtype=data.dtype, device=dev)
+    flat[write] = data
+    occupied = torch.zeros(k * capacity + junk, dtype=torch.bool, device=dev)
+    occupied[write] = True
     return Buckets(
-        data=flat[:-1].reshape((k, capacity) + tuple(data.shape[1:])),
-        valid=occupied[:-1].reshape(k, capacity),
+        data=flat[:k * capacity].reshape((k, capacity) + tail),
+        valid=occupied[:k * capacity].reshape(k, capacity),
         position=slot,
         dropped=dropped,
     )
@@ -88,12 +99,14 @@ class ExchangeResult(NamedTuple):
     dropped: torch.Tensor   # [] int32 dropped over all shards
 
 
-def capacity_all_to_all(data: torch.Tensor, dest: torch.Tensor, *, capacity: int) -> ExchangeResult:
+def capacity_all_to_all(data: torch.Tensor, dest: torch.Tensor, *, capacity: int,
+                        valid: Optional[torch.Tensor] = None) -> ExchangeResult:
     """Bucket each shard's records by destination shard and exchange them.
 
     `data` is [nb, N, ...], `dest` [nb, N] in [0, nb).  Each sender's buckets
     are written straight into the receivers' rows: the all_to_all is the
-    [sender, dest] -> [dest, sender] transpose, done while bucketing.
+    [sender, dest] -> [dest, sender] transpose, done while bucketing.  Rows
+    with `valid` [nb, N] False are discarded without taking a slot.
     """
     nb = data.shape[0]
     recv = torch.empty((nb, nb, capacity) + tuple(data.shape[2:]), dtype=data.dtype,
@@ -102,7 +115,8 @@ def capacity_all_to_all(data: torch.Tensor, dest: torch.Tensor, *, capacity: int
     position = torch.empty(dest.shape, dtype=torch.int64, device=data.device)
     dropped = torch.zeros((), dtype=torch.int32, device=data.device)
     for s in range(nb):
-        b = bucket_by_destination(data[s], dest[s], nb, capacity)
+        b = bucket_by_destination(data[s], dest[s], nb, capacity,
+                                  valid=None if valid is None else valid[s])
         recv[:, s] = b.data
         recv_valid[:, s] = b.valid
         position[s] = b.position

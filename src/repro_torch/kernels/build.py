@@ -22,6 +22,8 @@ import subprocess
 from pathlib import Path
 from types import SimpleNamespace
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "graph_kernels.cu", CSRC / "attention_kernels.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -41,16 +43,30 @@ _SIGNATURES = {
     "rmat_edges_launch": [_P, _P, _LL, _U, _U, _I, _U, _U, _U, _P],
     "feistel_perm_launch": [_P, _P, _LL, _I, _I, ctypes.POINTER(_U), _P],
     "relabel_gather_launch": [_P, _P, _P, _LL, _LL, _LL, _P],
-    "bucket_hist_launch": [_P, _LL, _I, _P, _I, _P],
+    "bucket_hist_launch": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
     "flash_attention_launch": [_P] * 8 + [_I] * 13 + [ctypes.c_float, _P],
 }
 
 _lib = None
+_COUNTERS: dict = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """int32 counters on `device` for kernels launched on `stream` whose last
+    block is chosen by an atomic counter (the decode kernel's chunk merge,
+    `bucket_hist`'s sum): zero, and left zero by every launch (that block
+    resets its counter).  Launches on one stream run in turn, so they share."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def cuda_tool(name: str) -> str:

@@ -129,35 +129,164 @@ relabel_gather_kernel(const int32_t* __restrict__ keys, const int32_t* __restric
 
 // ---------------------------------------------------------------------------
 // bucket_hist: counts of int32 ids in [0, k); any other value (the pad value
-// k, negatives) is not counted.  Each block keeps a histogram in shared
-// memory.  With k = nb = 8 every thread of a warp hits one of 8 bins, so the
-// warp first groups equal ids with __match_any_sync and one leader per group
-// adds the group's size: at most 8 shared atomics per warp step instead of
-// 32.  One global atomicAdd per (block, nonzero bin) at the end.  Integer
-// adds commute, so the result is exact.  Bound by bytes: 4 read per id.
+// k, negatives) is not counted.  Bound by bytes: 4 read per id.
+//
+// Loads: each thread issues kHistVecs independent 16-byte loads per tile
+// (4096 ids per 256-thread block), so with 4 blocks per SM some 64 KiB are in
+// flight per SM.  The ids before the first 16-byte boundary of `dest` and
+// after the last whole vector (at most 3 each) are counted one by one by
+// block 0.
+//
+// Small k (K = a power of two >= max(k, 4), at most 32): per-thread counters
+// in registers and no shared atomics.  An id u adds 1 << 8 (u & 3) to packed
+// word u >> 2 (four 8-bit bins per word, compared against every word index,
+// without branches); ids >= K (negatives too, as unsigned) match no word, and
+// bins k..K-1 (the pad value k) are counted but never written out.  After at
+// most 15 tiles (240 ids per thread < 256) the bytes are added into 32-bit
+// counters (at most n < 2^31 each), which are summed per warp with
+// __reduce_add_sync and across warps in shared memory.
+//
+// Large k (K = 0, k <= 8192): a histogram in shared memory, one copy per
+// warp where all fit in 32 KiB, else one per block (`copies`, chosen by the
+// wrapper), updated with native shared atomicAdd.
+//
+// Each block writes its k counts to partials[block, k]; the last block to
+// finish (an atomic ticket, 0 on entry and reset by that block) sums them into
+// `counts`.  So one launch does all: nothing zeroes `counts` beforehand.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-bucket_hist_kernel(const int32_t* __restrict__ dest, int64_t n, int k,
+constexpr int kHistThreads = 256;
+constexpr int kHistVecs = 4;                              // int4 loads per thread per tile
+constexpr int64_t kHistTileVecs = kHistThreads * kHistVecs;
+constexpr int kHistFlushTiles = 15;                       // 15 x 16 ids < 256 per byte bin
+
+template <int K>
+__device__ __forceinline__ void count_packed(uint32_t (&acc)[K / 4], int32_t v) {
+  const uint32_t u = static_cast<uint32_t>(v);
+  const uint32_t inc = 1u << ((u & 3u) << 3);
+  const uint32_t word = u >> 2;
+#pragma unroll
+  for (int r = 0; r < K / 4; ++r) acc[r] += word == static_cast<uint32_t>(r) ? inc : 0u;
+}
+
+template <int K>
+__device__ __forceinline__ void unpack(uint32_t (&acc)[K / 4], uint32_t (&c)[K]) {
+#pragma unroll
+  for (int r = 0; r < K / 4; ++r) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) c[4 * r + b] += (acc[r] >> (8 * b)) & 0xFFu;
+    acc[r] = 0;
+  }
+}
+
+// Calls f(id) for every id this block owns: block 0 takes the unaligned head
+// and the tail, every block the 16-byte vectors of its tiles.  `flush` runs
+// after every kHistFlushTiles tiles and at the end; every thread of a block
+// runs the same number of tiles.
+template <typename F, typename G>
+__device__ __forceinline__ void for_each_id(const int32_t* __restrict__ dest, int head,
+                                            int64_t nvec, int tail, F f, G flush) {
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < head) f(dest[threadIdx.x]);
+    if (threadIdx.x < tail) f(dest[head + 4 * nvec + threadIdx.x]);
+  }
+  const int4* __restrict__ vec = reinterpret_cast<const int4*>(dest + head);
+  const int64_t tiles = (nvec + kHistTileVecs - 1) / kHistTileVecs;
+  for (int64_t t = blockIdx.x; t < tiles;) {
+    for (int f_tiles = 0; f_tiles < kHistFlushTiles && t < tiles; ++f_tiles, t += gridDim.x) {
+      int4 x[kHistVecs];
+#pragma unroll
+      for (int u = 0; u < kHistVecs; ++u) {
+        const int64_t i = t * kHistTileVecs + u * kHistThreads + threadIdx.x;
+        x[u] = i < nvec ? __ldg(vec + i) : make_int4(-1, -1, -1, -1);
+      }
+#pragma unroll
+      for (int u = 0; u < kHistVecs; ++u) {
+        f(x[u].x);
+        f(x[u].y);
+        f(x[u].z);
+        f(x[u].w);
+      }
+    }
+    flush();
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kHistThreads, K == 32 ? 2 : 4)
+bucket_hist_kernel(const int32_t* __restrict__ dest, int head, int64_t nvec, int tail, int k,
+                   int copies, uint32_t* partials, unsigned* __restrict__ ticket,
                    int32_t* __restrict__ counts) {
-  extern __shared__ int32_t hist[];
-  for (int j = threadIdx.x; j < k; j += blockDim.x) hist[j] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  // Every thread of a warp runs the same number of iterations (the loop
-  // bound depends on the block only), so the full-warp mask is exact.
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x; base < n;
-       base += stride) {
-    const int64_t i = base + threadIdx.x;
-    const int32_t d = i < n ? dest[i] : -1;
-    const bool ok = d >= 0 && d < k;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, ok ? d : -1);
-    if (ok && lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
+  __shared__ uint32_t red[kHistThreads];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* part = partials + static_cast<int64_t>(blockIdx.x) * k;   // this block's row
+  if constexpr (K > 0) {
+    uint32_t acc[K / 4] = {};
+    uint32_t c[K] = {};
+    for_each_id(dest, head, nvec, tail, [&](int32_t v) { count_packed<K>(acc, v); },
+                [&]() { unpack<K>(acc, c); });
+    unpack<K>(acc, c);   // the head and tail ids of block 0
+    __shared__ uint32_t per_warp[kHistThreads / 32][K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const uint32_t s = __reduce_add_sync(0xFFFFFFFFu, c[j]);
+      if (lane == 0) per_warp[warp][j] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < k) {
+      uint32_t s = 0;
+#pragma unroll
+      for (int w = 0; w < kHistThreads / 32; ++w) s += per_warp[w][threadIdx.x];
+      part[threadIdx.x] = s;
+    }
+  } else {
+    extern __shared__ uint32_t hist[];                    // [copies, k]
+    for (int j = threadIdx.x; j < copies * k; j += kHistThreads) hist[j] = 0;
+    __syncthreads();
+    uint32_t* __restrict__ mine = hist + (warp % copies) * k;
+    const uint32_t uk = static_cast<uint32_t>(k);
+    for_each_id(dest, head, nvec, tail, [&](int32_t v) {
+      if (static_cast<uint32_t>(v) < uk) atomicAdd(mine + v, 1u);
+    }, []() {});
+    __syncthreads();
+    for (int j = threadIdx.x; j < k; j += kHistThreads) {
+      uint32_t s = 0;
+      for (int cp = 0; cp < copies; ++cp) s += hist[cp * k + j];
+      part[j] = s;
+    }
   }
+
+  // the last block to finish sums the partial counts
+  __threadfence();
   __syncthreads();
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    if (hist[j]) atomicAdd(&counts[j], hist[j]);
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int G = gridDim.x;
+  if (k <= kHistThreads) {
+    // thread t sums bin t % k over the rows t / k, t / k + R, ...
+    const int R = kHistThreads / k;
+    uint32_t s = 0;
+    if (threadIdx.x < R * k)
+#pragma unroll 8   // independent loads in flight: this sum is the launch's tail
+      for (int g = threadIdx.x / k; g < G; g += R)
+        s += __ldcg(partials + static_cast<int64_t>(g) * k + threadIdx.x % k);
+    red[threadIdx.x] = s;
+    __syncthreads();
+    if (threadIdx.x < k) {
+      s = 0;
+      for (int r = 0; r < R; ++r) s += red[r * k + threadIdx.x];
+      counts[threadIdx.x] = static_cast<int32_t>(s);
+    }
+  } else {
+    for (int j = threadIdx.x; j < k; j += kHistThreads) {
+      uint32_t s = 0;
+      for (int g = 0; g < G; ++g) s += __ldcg(partials + static_cast<int64_t>(g) * k + j);
+      counts[j] = static_cast<int32_t>(s);
+    }
   }
+  if (threadIdx.x == 0) *ticket = 0;   // ready for the next launch
 }
 
 }  // namespace
@@ -224,16 +353,38 @@ int relabel_gather_launch(const void* keys, const void* chunk, void* out, long l
   return static_cast<int>(cudaGetLastError());
 }
 
-int bucket_hist_launch(const void* dest, long long n, int k, void* counts, int max_blocks,
-                       void* stream) {
+// counts [k] from partials [grid, k] (scratch), ticket (one unsigned, 0 on
+// entry and on return); bins: 4, 8, 16 or 32 (registers, >= k) or 0 (shared
+// memory, `copies` histograms per block).  n < 2^31; dest 4-byte aligned.
+int bucket_hist_launch(const void* dest, long long n, int k, int bins, int grid, int copies,
+                       void* partials, void* ticket, void* counts, void* stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(dest);
+  if (addr % 4 || n < 0 || n >= (1LL << 31) || k < 1 || grid < 1 || copies < 1 ||
+      (bins > 0 && bins < k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int head = static_cast<int>(n < static_cast<long long>((16 - addr % 16) % 16 / 4)
+                                        ? n : (16 - addr % 16) % 16 / 4);
+  const int64_t nvec = (n - head) / 4;
+  const int tail = static_cast<int>(n - head - 4 * nvec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * static_cast<size_t>(k), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;
-  bucket_hist_kernel<<<static_cast<unsigned>(blocks), kThreads, sizeof(int32_t) * k, s>>>(
-      static_cast<const int32_t*>(dest), n, k, static_cast<int32_t*>(counts));
+  const int32_t* d = static_cast<const int32_t*>(dest);
+  uint32_t* p = static_cast<uint32_t*>(partials);
+  unsigned* t = static_cast<unsigned*>(ticket);
+  int32_t* c = static_cast<int32_t*>(counts);
+  switch (bins) {
+#define HIST_CASE(K)                                                                      \
+  case K:                                                                                 \
+    bucket_hist_kernel<K><<<grid, kHistThreads, 0, s>>>(d, head, nvec, tail, k, 1, p, t, c); \
+    break;
+    HIST_CASE(4) HIST_CASE(8) HIST_CASE(16) HIST_CASE(32)
+#undef HIST_CASE
+    case 0:
+      bucket_hist_kernel<0><<<grid, kHistThreads, sizeof(uint32_t) * copies * k, s>>>(
+          d, head, nvec, tail, k, copies, p, t, c);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -141,20 +141,6 @@ def plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: in
     return Plan("decode", bq, splits, chunk, groups, g * bq)
 
 
-_COUNTERS: dict = {}
-
-
-def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The decode kernel's int32 chunk counters for one stream: zero, and left
-    zero by every call (the last block of a group resets its counter)."""
-    key = (device.index, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
-    return buf
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale=None, offset=None) -> torch.Tensor:
     """GQA attention [B, Hq, Sq, D]: the plain version for CPU tensors, the
@@ -199,7 +185,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n_acc:
         part_acc = torch.empty((n_acc, D), dtype=torch.float32, device=q.device)
         part_ml = torch.empty((n_acc, 2), dtype=torch.float32, device=q.device)
-        counters = _counters(q.device, stream, p.groups)
+        counters = build.counters(q.device, stream, p.groups)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = build.library().flash_attention_launch(

@@ -12,7 +12,8 @@ per warp, not per thread), `NOP`, and the padding after the last `EXIT`.
                         the body branches, this is the longer path's bound
                         from above)
   grid-stride loop      the instructions of the loop that loads from global
-                        memory, divided by the loads in it (one per item)
+                        memory, divided by the int32 items its loads carry
+                        (a load of w bits carries w / 32: LDG.E.128 four)
 
 `opcodes()` gives the base opcodes of each function whose name holds a
 kernel's name (so a check can ask whether the prefill kernel issues HGMMA and
@@ -32,6 +33,7 @@ from .build import build, cuda_tool
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
 _TARGET = re.compile(r"\bBRA(?:\.\w+)*\s+(0x[0-9a-f]+)")
+_WIDTH = re.compile(r"\.(64|128)(?:\.|$)")
 _PTXAS_FUNC = re.compile(r"(?:Compiling entry function|Function properties for)\s+'?([^'\s]+)'?")
 _PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
@@ -69,8 +71,17 @@ def _counted(op: str) -> bool:
     return not (op.startswith("U") or op == "NOP")
 
 
+def _items(op: str) -> int:
+    """int32 items one global load carries, from its width (32 bits unless
+    the opcode says 64 or 128)."""
+    m = _WIDTH.search(op)
+    return int(m.group(1)) // 32 if m else 1
+
+
 def per_item_ops(text: str, kernel: str) -> int:
-    """Instructions one thread issues per item in the function whose name holds `kernel`."""
+    """Instructions one thread issues per item in the function whose name
+    holds `kernel` (one template instance: pass its mangled arguments too,
+    as in `bucket_hist_kernelILi8E`)."""
     funcs = _functions(text)
     names = [n for n in funcs if kernel in n]
     if len(names) != 1:
@@ -83,9 +94,9 @@ def per_item_ops(text: str, kernel: str) -> int:
         start = index_of.get(int(t.group(1), 16), i) if t else i
         if start < i:
             loop = [o for _, o, _ in body[start:i + 1]]
-            loads = sum(o.startswith("LDG") for o in loop)
-            if loads:
-                return -(-sum(_counted(o) for o in loop) // loads)
+            items = sum(_items(o) for o in loop if o.startswith("LDG"))
+            if items:
+                return -(-sum(_counted(o) for o in loop) // items)
     last_exit = max(i for i, (_, op, _) in enumerate(body) if op == "EXIT")
     return sum(_counted(op) for _, op, _ in body[:last_exit + 1])
 

@@ -47,11 +47,41 @@ def test_feistel_kernel_matches_plain(cuda, nbits):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [2, 8, 64])
-def test_bucket_hist_kernel_matches_plain(cuda, k):
-    g = torch.Generator(device="cpu").manual_seed(k)
-    dest = torch.randint(0, k + 1, (1_000_003,), generator=g, dtype=torch.int32).to(cuda)
-    assert torch.equal(ops.bucket_hist(dest, k), ops.bucket_hist_plain(dest, k))
+@pytest.mark.parametrize("k", [1, 2, 8, 32, 33, 64, 8192])
+@pytest.mark.parametrize("n", [0, 1, 17, 1_000_003, 1 << 22])
+def test_bucket_hist_kernel_matches_plain(cuda, k, n):
+    """Register bins (k <= 32) and shared-memory histograms (k > 32), with
+    the pad value k and negatives mixed in."""
+    g = torch.Generator(device="cpu").manual_seed(k * 7 + n)
+    dest = torch.randint(-1, k + 1, (n,), generator=g, dtype=torch.int32).to(cuda)
+    before = ops.LAUNCHES["bucket_hist"]
+    got = ops.bucket_hist(dest, k)
+    assert ops.LAUNCHES["bucket_hist"] == before + 1
+    assert torch.equal(got, ops.bucket_hist_plain(dest, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 64])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [2, 1_000_003])
+def test_bucket_hist_kernel_misaligned_start(cuda, k, offset, n):
+    """A slice whose data_ptr is not 16-byte aligned: the scalar head and
+    tail count the ids around the 16-byte vectors."""
+    g = torch.Generator(device="cpu").manual_seed(offset)
+    dest = torch.randint(0, k + 1, (n + offset,), generator=g, dtype=torch.int32).to(cuda)
+    part = dest[offset:]
+    assert part.data_ptr() % 16
+    assert torch.equal(ops.bucket_hist(part, k), ops.bucket_hist_plain(part, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 8192])
+def test_bucket_hist_kernel_all_pad(cuda, k):
+    dest = torch.full((1_000_003,), k, dtype=torch.int32, device=cuda)
+    assert torch.equal(ops.bucket_hist(dest, k), torch.zeros(k, dtype=torch.int32, device=cuda))
+    # the last block left its ticket at 0: the next call is right too
+    dest[::3] = 0
+    assert int(ops.bucket_hist(dest, k)[0]) == 333_335
 
 
 @pytest.mark.gpu

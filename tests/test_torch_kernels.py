@@ -20,7 +20,7 @@ from repro.kernels.rmat import TILE, feistel_perm_pallas
 from repro_torch.core import shuffle
 from repro_torch.core.hostgen import feistel_round_key, graph_perm_key, perm_domain_bits
 from repro_torch.core.types import GraphConfig, quadrant_thresholds
-from repro_torch.kernels import ops
+from repro_torch.kernels import bucket, ops
 
 MODES = ["xla", "interpret"]
 
@@ -143,6 +143,45 @@ def test_bucket_hist_ignores_pad_value(mode):
     want = ref_ops.bucket_hist(jnp.asarray(dest), 8, mode=mode)
     _eq(ops.bucket_hist(torch.from_numpy(dest), 8), want)
     np.testing.assert_array_equal(np.asarray(want), np.bincount(dest[dest < 8], minlength=8))
+
+
+@pytest.mark.parametrize("k,bins", [(1, 4), (4, 4), (5, 8), (8, 8), (9, 16), (32, 32), (33, 0),
+                                    (8192, 0)])
+def test_bucket_hist_plan_bins(k, bins):
+    """Register bins: the least of 4, 8, 16, 32 that holds k; above 32 the
+    shared-memory histograms (bins 0)."""
+    assert bucket.plan(1 << 20, k, 132).bins == bins
+
+
+@pytest.mark.parametrize("n,k,sms,grid", [
+    (1 << 27, 8, 132, 132 * bucket.BLOCKS_PER_SM),   # the main shape: as many as fit at once
+    (1 << 22, 8, 132, 132 * bucket.BLOCKS_PER_SM),   # the walk shape: 1024 tiles > 528
+    (4097, 8, 132, 2),                               # no more blocks than tiles
+    (0, 8, 132, 1),
+    (1 << 22, 64, 132, 132 * bucket.BLOCKS_PER_SM),
+    (1 << 22, 8192, 132, bucket.PARTIAL_ROWS_IDS // 8192),   # the last block's sum stays short
+])
+def test_bucket_hist_plan_grid(n, k, sms, grid):
+    p = bucket.plan(n, k, sms)
+    assert p.grid == grid
+    assert p.grid * k <= max(bucket.PARTIAL_ROWS_IDS, k)
+    assert p.grid <= max(1, -(-n // bucket.TILE_IDS))
+
+
+@pytest.mark.parametrize("k,copies", [(8, 1), (64, 8), (1024, 8), (1025, 1), (8192, 1)])
+def test_bucket_hist_plan_shared_copies(k, copies):
+    """One shared histogram per warp where all fit in SMEM_BYTES, else one
+    per block."""
+    p = bucket.plan(1 << 22, k, 132)
+    assert p.copies == copies
+    assert 4 * k * p.copies <= bucket.SMEM_BYTES
+
+
+def test_bucket_hist_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(TypeError):
+        ops.bucket_hist(torch.zeros(4, dtype=torch.int64), 8)
+    with pytest.raises(ValueError):
+        ops.bucket_hist(torch.zeros(4, dtype=torch.int32), bucket.MAX_K + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -179,7 +179,8 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert {"repro_torch.serve", "repro_torch.models", "repro_torch.launch.serve"} <= set(names)
+assert {"repro_torch.serve", "repro_torch.models", "repro_torch.launch.serve",
+        "repro_torch.data", "repro_torch.data.walks", "repro_torch.data.loader"} <= set(names)
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules), "reference imported"
 print(len(names))
 """

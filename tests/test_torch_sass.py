@@ -79,6 +79,52 @@ def test_per_item_ops(kernel, want):
     assert per_item_ops(LISTING, kernel) == want
 
 
+HIST_LISTING = """
+\t\tFunction : _ZN49_GLOBAL__N__c69a4754_16_graph_kernels_cu_91c5601418bucket_hist_kernelILi8EEEvPKiiliiiPjS3_Pi
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/              @P1 LDG.E R4, desc[UR4][R2.64] ;
+        /*0020*/                   LDG.E.128.CONSTANT R8, desc[UR4][R2.64] ;
+        /*0030*/                   LDG.E.128.CONSTANT R12, desc[UR4][R2.64+0x1000] ;
+        /*0040*/                   LOP3.LUT R5, R8, 0x3, RZ, 0xc0, !PT ;
+        /*0050*/                   SHF.R.U32.HI R6, RZ, 0x2, R8 ;
+        /*0060*/                   SHF.L.U32 R7, R5, 0x3, RZ ;
+        /*0070*/                   ISETP.NE.U32.AND P0, PT, R6, RZ, PT ;
+        /*0080*/              @!P0 IADD3 R20, R20, R7, RZ ;
+        /*0090*/                   UIADD3 UR6, UR6, 0x1, URZ ;
+        /*00a0*/                   ISETP.GE.AND P0, PT, R3, UR7, PT ;
+        /*00b0*/              @!P0 BRA 0x20 ;
+        /*00c0*/                   REDUX.SUM.S32 UR8, R20 ;
+        /*00d0*/                   EXIT ;
+\t\t..........
+
+\t\tFunction : _ZN49_GLOBAL__N__c69a4754_16_graph_kernels_cu_91c5601418bucket_hist_kernelILi0EEEvPKiiliiiPjS3_Pi
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDG.E.64.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/                   ISETP.GE.U32.AND P0, PT, R4, UR5, PT ;
+        /*0030*/              @!P0 ATOMS.ADD RZ, [R6], R7 ;
+        /*0040*/              @!P1 BRA 0x10 ;
+        /*0050*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    # the loop 0x20..0xb0: 9 thread instructions (UIADD3 is uniform) over
+    # two 128-bit loads of 4 items each; the head's 32-bit load before it
+    # is not in the loop
+    ("bucket_hist_kernelILi8E", 2),
+    # 4 thread instructions over one 64-bit load of 2 items
+    ("bucket_hist_kernelILi0E", 2),
+])
+def test_per_item_ops_counts_items_per_load_width(kernel, want):
+    assert per_item_ops(HIST_LISTING, kernel) == want
+
+
+def test_per_item_ops_needs_one_instance():
+    """A templated kernel's name alone names every instance."""
+    with pytest.raises(KeyError):
+        per_item_ops(HIST_LISTING, "bucket_hist_kernel")
+
+
 def test_per_item_ops_needs_one_function():
     with pytest.raises(KeyError):
         per_item_ops(LISTING, "rmat_edges_kernel")
