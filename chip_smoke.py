@@ -45,10 +45,30 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    kernel); then loader_main: a WalkLoader over that CSR on the card (the
    global CSR assembled there, held to the sharded one; build and batch ms,
    peak memory);
-4. serve_parity phase: the serve path's smoke configs (internlm2, codeqwen;
+4. disk-tier phases (the out-of-core generator, `core/external.py` and
+   `core/phases.py`, whose per-chunk hot loops run the four graph kernels
+   through `core/chunks.py`; each in a temporary workdir, deleted after):
+   external_parity runs StreamingGenerator (external shuffle with sorted
+   and scatter CSR, recompute, device shuffle) and PartitionedGenerator
+   (4 workers: external and recompute over the filesystem, external over
+   sockets) at scale 16, nb 8, chunks of 2^14, on the card and on the CPU,
+   each run a process of its own: every file a run leaves has the same
+   sha256 on both, and the card's runs launched all four graph kernels;
+   external_main runs StreamingGenerator at scale 20 (2^24 edges, nb 8,
+   external shuffle, sorted CSR, chunks of 2^21, I/O overlap) on the card,
+   launch counts set to 0 just before and read just after: wall seconds,
+   edges/s, seconds per phase, the I/O ledger, host peak rows against the
+   chunk budget, peak device memory, each kernel's launches and summed
+   CUDA-event ms, the card's busy share (torch.profiler); validated on the
+   card against the port's distributed_shuffle (pv) and generate (sorted
+   src * n + dst keys, degrees); external_recompute runs
+   PartitionedGenerator (recompute, 4 workers on the card, scale 18) and
+   holds its CSR files to an external+feistel StreamingGenerator run;
+   the kernel phase also times the four graph kernels at these chunk shapes;
+5. serve_parity phase: the serve path's smoke configs (internlm2, codeqwen;
    f32) on the card and on the CPU: prefill and decode logits within 1e-4,
    the Engine's tokens equal;
-5. serve_main phase: the continuous-batching Engine serving internlm2-1.8b
+6. serve_main phase: the continuous-batching Engine serving internlm2-1.8b
    at full width (bf16, random weights from a seeded generator on the card),
    8 slots of 4096 positions, 16 requests of 128-2048 prompt tokens and 64
    new tokens each (12 greedy, 4 sampled), admitted in waves as slots free
@@ -68,6 +88,7 @@ repository beside it, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -110,6 +131,32 @@ WALK_CAPACITY_FACTOR = NB
 WALK_PARITY_CAPACITY_FACTOR = 4
 WALK_SEED = 0
 WALK_PARITY_WALKERS = 256          # walks_parity, on the scale-16 graph
+# The disk tier (StreamingGenerator / PartitionedGenerator): external_parity
+# runs every driver and variant at scale 16 on the card and on the CPU, each
+# run a process of its own; external_main is the out-of-core Graph500 run on
+# the card; external_recompute the partitioned communication-free one, held
+# to an external+feistel streaming run.
+DISK_PARITY_SCALE, DISK_PARITY_CHUNK = 16, 1 << 14
+DISK_MAIN_SCALE, DISK_MAIN_CHUNK = 20, 1 << 21
+DISK_RECOMPUTE_SCALE, DISK_RECOMPUTE_CHUNK = 18, 1 << 20
+DISK_WORKERS = 4                   # PartitionedGenerator's worker processes
+DISK_PARITY_RUNS = (               # (name, driver, GraphConfig fields)
+    ("partitioned-external-socket", "partitioned", {"shuffle_variant": "external",
+                                                    "transport": "socket"}),
+    ("partitioned-external-fs", "partitioned", {"shuffle_variant": "external"}),
+    ("partitioned-recompute-fs", "partitioned", {"shuffle_variant": "recompute"}),
+    ("streaming-external-sorted", "streaming", {"shuffle_variant": "external"}),
+    ("streaming-external-scatter", "streaming", {"shuffle_variant": "external",
+                                                 "csr_variant": "scatter"}),
+    ("streaming-recompute", "streaming", {"shuffle_variant": "recompute"}),
+    ("streaming-device", "streaming", {"shuffle_variant": "device"}),
+)
+# the runs whose graph then feeds an out-of-core walk corpus: external_walks
+# through ExternalWalkLoader (streaming) and the pool's walk_corpus
+# (partitioned), DISK_WALKERS walks of DISK_WALK_LENGTH hops each (a walk's
+# cost grows faster than its hop count, so the walks stay short here)
+DISK_WALK_RUNS = ("streaming-external-sorted", "partitioned-recompute-fs")
+DISK_WALKERS, DISK_WALK_LENGTH, DISK_WALK_BATCHES = 4096, 3, 3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -216,6 +263,7 @@ def main() -> int:
     hist_k64 = f"bucket_hist_kernelILi{bucket.plan(1, 64, 1).bins}E"
     ops_per_item = {
         "rmat_edges": sass.per_item_ops(listing, f"rmat_edges_kernelILi{MAIN_SCALE}E"),
+        "rmat_edges_disk": sass.per_item_ops(listing, f"rmat_edges_kernelILi{DISK_MAIN_SCALE}E"),
         "feistel_perm": sass.per_item_ops(listing, f"feistel_perm_kernelILi{rounds}E"),
         "relabel_gather": sass.per_item_ops(listing, "relabel_gather_kernel"),
         hist_k8: sass.per_item_ops(listing, hist_k8),
@@ -370,6 +418,44 @@ def main() -> int:
     emit({"kernel": "bucket_hist", "case": "planted fault: the first id (5) skipped",
           "max_abs_diff": fault, "rejected": True})
     del dk, part
+
+    # the disk tier's chunk shapes (the hooks of core/chunks.py): one
+    # external_main chunk (2^21 edges) for rmat_edges and for bucket_hist (a
+    # partition's counts, k 8); one external_recompute chunk (2^20
+    # endpoints, nbits 18) for feistel_perm; one pv-join segment for
+    # relabel_gather (the sorted keys that fall in one pv run: a run holds
+    # one shuffle slice, B / nb rows, and the graph has edge_factor
+    # endpoints per vertex)
+    dcfg = GraphConfig(scale=DISK_MAIN_SCALE, nb=NB)
+    C = DISK_MAIN_CHUNK
+    check_kernel("rmat_edges", f"disk tier: one chunk, 2^21 edges, scale {DISK_MAIN_SCALE}",
+                 lambda: ops.rmat_edges(dcfg, 5 * C, C, dev),
+                 lambda: ops.rmat_edges_plain(dcfg, 5 * C, C, dev), timed=True, main=False,
+                 n_bytes=8 * C, n_ops=C * ops_per_item["rmat_edges_disk"], size=C)
+    xr = torch.randint(0, 1 << DISK_RECOMPUTE_SCALE, (DISK_RECOMPUTE_CHUNK,), generator=g,
+                       device=dev, dtype=torch.int32)
+    check_kernel("feistel_perm", f"disk tier: one chunk, 2^20 ids, nbits {DISK_RECOMPUTE_SCALE}",
+                 lambda: ops.feistel_perm(xr, key, DISK_RECOMPUTE_SCALE, rounds),
+                 lambda: ops.feistel_perm_plain(xr, key, DISK_RECOMPUTE_SCALE, rounds),
+                 timed=True, main=False, n_bytes=8 * xr.numel(),
+                 n_ops=xr.numel() * ops_per_item["feistel_perm"], size=xr.numel())
+    dk = torch.randint(0, NB, (C,), generator=g, device=dev, dtype=torch.int32)
+    check_kernel("bucket_hist", "disk tier: one chunk's partition, 2^21 ids, k 8",
+                 lambda: ops.bucket_hist(dk, NB), lambda: ops.bucket_hist_plain(dk, NB),
+                 timed=True, main=False, n_bytes=4 * (C + NB), n_ops=C * ops_per_item[hist_k8],
+                 library_fn=lambda: torch.bincount(dk, minlength=NB), size=C)
+    rows = dcfg.bucket_size // NB
+    base = 5 * rows
+    block = torch.randperm(dcfg.n, generator=g, device=dev)[:rows].to(torch.int32)
+    seg = torch.sort(torch.randint(base, base + rows, (dcfg.edge_factor * rows,), generator=g,
+                                   device=dev, dtype=torch.int32)).values
+    check_kernel("relabel_gather", f"disk tier: one pv-join segment, {seg.numel()} keys, "
+                 f"{rows} rows",
+                 lambda: ops.relabel_gather(seg, block, base),
+                 lambda: ops.relabel_gather_plain(seg, block, base), timed=True, main=False,
+                 n_bytes=8 * seg.numel() + 4 * rows,
+                 n_ops=ops_per_item["relabel_gather"] * seg.numel(), size=seg.numel())
+    del xr, dk, block, seg
     flash = flash_phase(torch, ops, dev, g, time_ms)
     torch.cuda.empty_cache()
 
@@ -484,7 +570,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
-    # 4-5. the serve path: card == CPU on the smoke configs, then the
+    # 4. the disk tier: card == CPU for every driver and variant, then the
+    # out-of-core main run and the partitioned communication-free run
+    # ------------------------------------------------------------------
+    external_parity_phase(torch, dev)
+    main_counts["external_main"] = external_main_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
+    main_counts["external_recompute"] = external_recompute_phase(torch, ops, dev)
+
+    # ------------------------------------------------------------------
+    # 5-6. the serve path: card == CPU on the smoke configs, then the
     # full-width Engine
     # ------------------------------------------------------------------
     serve_parity_phase(torch, dev)
@@ -732,6 +827,318 @@ def loader_main_phase(torch, dev, cfg, csr_host):
           "seq_len": lcfg.seq_len, "build_ms": a.elapsed_time(b), "batch_ms": b.elapsed_time(c),
           "sharded_csr_gib": csr_bytes / 2**30, "peak_gib": peak / 2**30})
     del loader, csr, batch, again
+
+
+# ----------------------------------------------------------------------
+# the disk tier: StreamingGenerator / PartitionedGenerator
+# ----------------------------------------------------------------------
+
+
+def tree_shas(root) -> dict:
+    """{path under root: sha256} of every .npy file a generator left: the CSR
+    bucket files, pv.npy, and the stores no phase freed."""
+    import hashlib
+
+    out = {}
+    for path in sorted(Path(root).rglob("*.npy")):
+        out[str(path.relative_to(root))] = hashlib.sha256(path.read_bytes()).hexdigest()
+    return out
+
+
+def disk_run(driver: str, fields: dict, workdir: str, device, walks: bool = False) -> dict:
+    """One disk-tier run (the repo's entry points, as a user calls them):
+    its seconds, per-phase report, ledger, peak rows, launch counts (this
+    process's and its workers') and the sha256 of every file it left.  With
+    `walks`, a walk corpus over its CSR follows (its own seconds and launch
+    counts; its shards are among the files hashed): ExternalWalkLoader's
+    external_walks and the sha256 of its first batches after a streaming
+    run, the generator's walk_corpus after a partitioned one."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.core.external import StreamingGenerator
+    from repro_torch.core.phases import PartitionedGenerator
+    from repro_torch.core.types import GraphConfig
+    from repro_torch.data import ExternalWalkLoader, LoaderConfig
+    from repro_torch.kernels import ops
+
+    cfg = GraphConfig(**fields)
+    ops.reset_launches()
+    t = time.perf_counter()
+    out = {}
+    if driver == "streaming":
+        gen = StreamingGenerator(cfg, workdir, device=device)
+        gen.run()
+        orch = gen.orchestrator
+        out.update(seconds=time.perf_counter() - t, launches=dict(ops.LAUNCHES))
+        if walks:
+            ops.reset_launches()
+            t = time.perf_counter()
+            loader = ExternalWalkLoader(cfg, workdir, LoaderConfig(seq_len=DISK_WALK_LENGTH),
+                                        num_walkers=DISK_WALKERS, checkpoint=False,
+                                        device=device)
+            digest = hashlib.sha256()
+            for step in range(DISK_WALK_BATCHES):
+                for v in loader.batch(step).values():
+                    digest.update(np.ascontiguousarray(v.cpu().numpy()).tobytes())
+            out.update(walk_seconds=time.perf_counter() - t,
+                       walk_launches=dict(ops.LAUNCHES), batches_sha=digest.hexdigest())
+    else:
+        with PartitionedGenerator(cfg, workdir, max_workers=DISK_WORKERS, device=device) as gen:
+            gen.run(cfg.csr_variant)
+            orch = gen.orchestrator
+            out.update(seconds=time.perf_counter() - t, launches=dict(ops.LAUNCHES))
+            if walks:
+                ops.reset_launches()
+                t = time.perf_counter()
+                gen.walk_corpus(DISK_WALKERS, DISK_WALK_LENGTH)
+                out.update(walk_seconds=time.perf_counter() - t,
+                           walk_launches=dict(ops.LAUNCHES))
+    return {**out, "report": orch.report(), "ledger": gen.ledger.as_dict(),
+            "peak_rows": gen.gauge.peak_rows, "shas": tree_shas(workdir)}
+
+
+def disk_run_child(argv) -> int:
+    """`chip_smoke.py --disk-run DRIVER FIELDS_JSON WORKDIR DEVICE WALKS`: one
+    external_parity run in a process of its own (WALKS 1 adds the walk
+    corpus); its result is the last line of its standard output."""
+    sys.path.insert(0, str(ROOT / "src"))
+    driver, fields, workdir, device = argv[0], json.loads(argv[1]), argv[2], argv[3]
+    res = disk_run(driver, fields, workdir, device, walks=argv[4] == "1")
+    print(json.dumps({k: v for k, v in res.items() if k != "report"}), flush=True)
+    return 0
+
+
+def external_parity_phase(torch, dev):
+    """Every disk-tier driver and variant at scale 16, nb 8, chunks of 2^14
+    edges, on the card and on the CPU: the sha256 of every file each run
+    leaves (CSR bucket files, pv.npy, pv bucket stores) equal card vs CPU.
+    The DISK_WALK_RUNS also walk their graph out of core (external_walks
+    through ExternalWalkLoader, the pool's walk_corpus): the corpus shards
+    are among the files held equal, the loader's batches too, and the card's
+    walks must have launched bucket_hist.  Each run is a process of its own,
+    all started together (the card's runs each with their own CUDA context;
+    the host's cores are shared, so a run's seconds are not its time alone);
+    the card's runs must have launched each of the four graph kernels.
+    Returns their launch counts, walks included."""
+    import tempfile
+
+    common = {"scale": DISK_PARITY_SCALE, "nb": NB, "chunk_edges": DISK_PARITY_CHUNK}
+    jobs = [(name, side, driver, {**common, **fields})
+            for name, driver, fields in DISK_PARITY_RUNS for side in ("cuda", "cpu")]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    results, procs, t = {}, [], time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="external_parity_") as tmp:
+        try:
+            for name, side, driver, fields in jobs:
+                out = open(Path(tmp) / f"{name}-{side}.log", "w+")
+                cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--disk-run", driver,
+                       json.dumps(fields), str(Path(tmp) / f"{name}-{side}"),
+                       "cuda:0" if side == "cuda" else "cpu", str(int(name in DISK_WALK_RUNS))]
+                child_env = env if side == "cuda" else dict(env, CUDA_VISIBLE_DEVICES="")
+                procs.append((name, side, out, subprocess.Popen(
+                    cmd, stdout=out, stderr=subprocess.STDOUT, env=child_env)))
+            for name, side, out, proc in procs:
+                proc.wait()
+                out.seek(0)
+                text = out.read()
+                require(proc.returncode == 0, f"external_parity: {name} on {side} failed "
+                        f"({proc.returncode}):\n{text[-3000:]}")
+                results[(name, side)] = json.loads(text.strip().splitlines()[-1])
+        finally:
+            for *_, out, proc in procs:     # after a failure, stop the other runs
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+    launches = {k: 0 for k in results[(jobs[0][0], "cuda")]["launches"]}
+    for name, _, _ in DISK_PARITY_RUNS:
+        card, cpu = results[(name, "cuda")], results[(name, "cpu")]
+        require(card["shas"] == cpu["shas"] and len(card["shas"]) > NB,
+                f"external_parity: {name} files differ card vs CPU")
+        require(sum(cpu["launches"].values()) == 0, f"external_parity: {name} launched on the CPU")
+        for k, v in card["launches"].items():
+            launches[k] += v + card.get("walk_launches", {}).get(k, 0)
+        line = {"phase": "external_parity", "run": name, "scale": DISK_PARITY_SCALE, "nb": NB,
+                "chunk_edges": DISK_PARITY_CHUNK, "files_equal": len(card["shas"]),
+                "card_s": card["seconds"], "cpu_s": cpu["seconds"],
+                "card_launches": {k: v for k, v in card["launches"].items() if v}}
+        if name in DISK_WALK_RUNS:
+            shards = [f for f in card["shas"] if Path(f).name.startswith("walks_b")]
+            require(len(shards) >= NB, f"external_parity: {name} left no walk corpus shards")
+            require(card.get("batches_sha") == cpu.get("batches_sha"),
+                    f"external_parity: {name} loader batches differ card vs CPU")
+            require(sum(cpu["walk_launches"].values()) == 0,
+                    f"external_parity: {name}'s walks launched on the CPU")
+            require(card["walk_launches"]["bucket_hist"] > 0,
+                    f"external_parity: {name}'s walks never launched bucket_hist")
+            line.update(walkers=DISK_WALKERS, walk_length=DISK_WALK_LENGTH,
+                        walk_shards_equal=len(shards), card_walk_s=card["walk_seconds"],
+                        cpu_walk_s=cpu["walk_seconds"],
+                        card_walk_launches={k: v for k, v in card["walk_launches"].items() if v})
+        emit(line)
+    for k in DISK_KERNELS:
+        require(launches[k] > 0, f"external_parity: no run launched {k}")
+    emit({"phase": "external_parity", "runs": len(jobs), "equal": True, "launches": launches,
+          "seconds": time.perf_counter() - t})
+    return launches
+
+
+DISK_KERNELS = ("rmat_edges", "feistel_perm", "bucket_hist", "relabel_gather")
+
+
+def profiled_kernels(prof) -> dict:
+    """Per graph kernel, the launches and the device ms that torch.profiler
+    recorded (its CUDA kernel rows, matched by the kernel's name)."""
+    from torch.autograd import DeviceType
+
+    out = {k: {"launches": 0, "ms": 0.0} for k in DISK_KERNELS}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in DISK_KERNELS:
+            if f"{k}_kernel" in e.key:
+                out[k]["launches"] += e.count
+                out[k]["ms"] += e.self_device_time_total / 1e3
+    return out
+
+
+def disk_line(label, cfg, gen, wall, extra) -> dict:
+    """The numbers every disk-tier main run prints."""
+    led = gen.ledger.as_dict()
+    report = gen.orchestrator.report()
+    pcfg = gen.pcfg if hasattr(gen, "pcfg") else gen._pcfg
+    return {"phase": label, "scale": cfg.scale, "nb": cfg.nb, "edges": cfg.m,
+            "chunk_edges": cfg.chunk_edges, "shuffle": cfg.shuffle_variant,
+            "perm_family": pcfg.perm_family, "csr": cfg.csr_variant,
+            "io_overlap": cfg.io_overlap, "wall_s": wall, "edges_per_s": cfg.m / wall,
+            "phase_s": {r["phase"]: r["seconds"] for r in report},
+            "ledger": {k: led[k] for k in ("seq_reads", "seq_writes", "rand_reads",
+                                           "rand_writes", "bytes_read", "bytes_written",
+                                           "hash_evals", "read_wait_s", "write_wait_s",
+                                           "overlap_s")},
+            "peak_rows": gen.gauge.peak_rows, "budget_rows": gen.gauge.budget_rows, **extra}
+
+
+def external_main_phase(torch, ops, dev):
+    """The out-of-core Graph500 run on the card: StreamingGenerator at scale
+    20 (2^24 edges, 268 MB per edge store), nb 8, the paper's external
+    shuffle, sorted CSR, chunks of 2^21 edges, I/O overlap on.  Launch
+    counts set to 0 just before and read just after; torch.profiler gives
+    each graph kernel's launches (which must equal the wrappers' counts) and
+    device ms, and the card's busy share (kernels and copies over the wall
+    time).  Validated
+    on the card: pv equals the port's distributed_shuffle at nb 8, the sorted
+    src * n + dst keys and the degrees of the CSR bucket files equal those of
+    the port's generate(cfg, "paper").  Returns the launch counts."""
+    import tempfile
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.external import StreamingGenerator
+    from repro_torch.core.pipeline import generate
+    from repro_torch.core.shuffle import distributed_shuffle
+    from repro_torch.core.types import GraphConfig
+
+    cfg = GraphConfig(scale=DISK_MAIN_SCALE, nb=NB, chunk_edges=DISK_MAIN_CHUNK,
+                      shuffle_variant="external", csr_variant="sorted", io_overlap=True)
+    with tempfile.TemporaryDirectory(prefix="external_main_") as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = StreamingGenerator(cfg, tmp, device=dev)
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            pv, csr, _ = gen.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = dict(ops.LAUNCHES)
+        kernels = profiled_kernels(prof)
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / 1e3
+        line = disk_line("external_main", cfg, gen, wall, {
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+            "launches": counts, "kernels": kernels,
+            "kernel_ms": sum(k["ms"] for k in kernels.values()), "device_ms": device_ms,
+            "busy_share": device_ms / (wall * 1e3) if device_ms else "not measured"})
+        line["kernel_share"] = line["kernel_ms"] / (wall * 1e3)
+        for k in DISK_KERNELS:
+            require(kernels[k]["launches"] == counts[k],
+                    f"external_main: the profiler saw {kernels[k]['launches']} launches of {k}, "
+                    f"its wrapper counted {counts[k]}")
+            if k != "feistel_perm":
+                require(counts[k] > 0, f"external_main never launched {k}")
+        t = time.perf_counter()
+        n, B = cfg.n, cfg.bucket_size
+        want = generate(cfg, shuffle_variant="paper", device=dev)
+        require(int(want.dropped_relabel) == 0 and int(want.dropped_redistribute) == 0,
+                "external_main: the device generate dropped records")
+        pv_ok = torch.equal(torch.from_numpy(np.array(pv, np.int64)).to(dev),
+                            distributed_shuffle(cfg, dev).long())
+        src = torch.cat([i * B + torch.repeat_interleave(
+            torch.arange(B, device=dev), torch.from_numpy(np.diff(o)).to(dev))
+            for i, (o, _) in enumerate(csr)])
+        dst = torch.cat([torch.from_numpy(np.array(a, np.int64)).to(dev) for _, a in csr])
+        valid = want.owned.valid
+        wsrc, wdst = want.owned.src[valid].long(), want.owned.dst[valid].long()
+        keys_ok = (src.numel() == wsrc.numel() == cfg.m
+                   and torch.equal(torch.sort(src * n + dst).values,
+                                   torch.sort(wsrc * n + wdst).values))
+        deg_ok = torch.equal(torch.bincount(src, minlength=n), torch.bincount(wsrc, minlength=n))
+        torch.cuda.synchronize()
+        line["checks"] = {"pv_equals_distributed_shuffle": pv_ok, "sorted_keys_equal": keys_ok,
+                          "degrees_equal": deg_ok, "random_transfers":
+                          line["ledger"]["rand_reads"] + line["ledger"]["rand_writes"]}
+        line["validate_s"] = time.perf_counter() - t
+        del want, src, dst, wsrc, wdst, valid, pv, csr, gen
+    emit(line)
+    require(pv_ok and keys_ok and deg_ok, f"external_main: validation failed {line['checks']}")
+    require(line["checks"]["random_transfers"] == 0, "external_main: random I/O on the sorted path")
+    return counts
+
+
+def external_recompute_phase(torch, ops, dev):
+    """The communication-free variant out of core: PartitionedGenerator with
+    DISK_WORKERS workers on the card, scale 18, nb 8, chunks of 2^20 (its
+    kernels launch in the workers; their counts come back at each barrier,
+    their times and memory are not measured).  Its CSR bucket files must
+    have the sha256 of an external+feistel StreamingGenerator run of the same
+    graph on the card.  Returns the partitioned run's launch counts."""
+    import tempfile
+
+    from repro_torch.core.external import StreamingGenerator
+    from repro_torch.core.phases import PartitionedGenerator
+    from repro_torch.core.types import GraphConfig
+
+    cfg = GraphConfig(scale=DISK_RECOMPUTE_SCALE, nb=NB, chunk_edges=DISK_RECOMPUTE_CHUNK,
+                      shuffle_variant="recompute", csr_variant="sorted", io_overlap=True)
+    with tempfile.TemporaryDirectory(prefix="external_recompute_") as tmp:
+        part_dir, ref_dir = Path(tmp) / "partitioned", Path(tmp) / "streaming"
+        ops.reset_launches()
+        t = time.perf_counter()
+        with PartitionedGenerator(cfg, str(part_dir), max_workers=DISK_WORKERS,
+                                  device=dev) as gen:
+            gen.run()
+            wall = time.perf_counter() - t
+            counts = dict(ops.LAUNCHES)
+            line = disk_line("external_recompute", cfg, gen, wall,
+                             {"workers": DISK_WORKERS, "launches": counts})
+        t = time.perf_counter()
+        ref = StreamingGenerator(cfg.with_(shuffle_variant="external", perm_family="feistel"),
+                                 str(ref_dir), device=dev)
+        ref.run()
+        line["streaming_external_feistel_s"] = time.perf_counter() - t
+        csr_names = [f"csr_{w}_{i:03d}.npy" for i in range(NB) for w in ("offv", "adjv")]
+        got, want = tree_shas(part_dir), tree_shas(ref_dir)
+        line["csr_files_equal"] = all(got.get(f) == want.get(f) and f in want for f in csr_names)
+    emit(line)
+    require(line["csr_files_equal"], "external_recompute: CSR files differ from external+feistel")
+    for k in ("rmat_edges", "feistel_perm", "bucket_hist"):
+        require(counts[k] > 0, f"external_recompute never launched {k}")
+    return counts
 
 
 def attention_build_phase(sass, lib):
@@ -1068,4 +1475,6 @@ def serve_trace(torch, engine, cfg):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--disk-run"]:
+        sys.exit(disk_run_child(sys.argv[2:]))
     sys.exit(main())

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +26,10 @@ _VERTEX_DTYPES = {"int32": torch.int32}
 
 @dataclasses.dataclass(frozen=True)
 class GraphConfig:
-    """The reference `GraphConfig`'s fields that the device pipeline reads."""
+    """The reference `GraphConfig`'s fields: those the device pipeline reads
+    and those of the disk tier (`core/external.py`, `core/phases.py`), with
+    the reference's defaults.  The disk tier's fields are documented where
+    `phases.PlainCfg` mirrors them."""
 
     scale: int = 16
     edge_factor: int = DEFAULT_EDGE_FACTOR
@@ -42,6 +45,19 @@ class GraphConfig:
     csr_variant: str = "sorted"           # "sorted" | "scatter"
     vertex_dtype: torch.dtype = torch.int32
     feistel_rounds: int = 4
+    # --- disk tier ----------------------------------------------------------
+    chunk_edges: int = 1 << 16            # edges per in-memory chunk (the paper's mmc)
+    shuffle_variant: str = "device"       # "device" | "external" | "recompute"
+    perm_family: str = "shuffle"          # "shuffle" | "feistel" (recompute implies feistel)
+    merge_block_rows: int = 0
+    merge_fanin: int = 64
+    io_overlap: bool = True
+    trace: bool = False
+    pooled_cascade: bool = False
+    checkpoint_phases: bool = False
+    transport: str = "fs"                 # "fs" | "socket"
+    peer_addrs: Optional[Tuple[str, ...]] = None
+    keep_phase_stores: bool = False
 
     @classmethod
     def from_reference(cls, obj) -> "GraphConfig":
@@ -91,6 +107,9 @@ class GraphConfig:
         if self.nb <= 1:
             return 1
         return max(1, int(math.ceil(math.log(self.n) / math.log(self.nb))))
+
+    def with_(self, **kw) -> "GraphConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def owner_of(v: torch.Tensor, bucket_size: int) -> torch.Tensor:

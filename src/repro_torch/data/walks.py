@@ -1,5 +1,4 @@
-"""Random-walk corpus over the generated graph (twin of `repro.data.walks`,
-its device half).
+"""Random-walk corpus over the generated graph (twin of `repro.data.walks`).
 
   host_walks         numpy sampler over one host CSR: the oracle
   csr_walks          the same walks on tensors of any device (the loader's)
@@ -10,6 +9,10 @@ its device half).
                      reference's nb-shard mesh is the leading dimension of
                      each array here, so on the card every hop runs the
                      `bucket_hist` kernel once per shard.
+  external_walks     the out-of-core sampler over the disk tier's CSR bucket
+                     files: each hop is the redistribute phase applied to
+                     walkers (core/phases.py walk kernels), the corpus a
+                     sharded set of files (core/corpus.py).
 
 The shared RNG contract, bit-identical across the samplers (and with the
 reference's): the value drawn for walker w at step t is walk_rand(seed, w, t)
@@ -28,12 +31,24 @@ Tokenization: token = vertex % vocab.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core.blockstore import IOLedger, MemoryGauge
+from ..core.corpus import ShardedWalks
 from ..core.hostgen import _GOLDEN, MASK32, walk_rand_np, walk_start_np
+from ..core.phases import (
+    _KERNELS,
+    PhaseOrchestrator,
+    PlainCfg,
+    WalkCfg,
+    drive_walks,
+    plain_config,
+    result_config_key,
+)
+from ..core.transport import make_transport
 from ..core.types import GraphConfig, owner_of
 from ..distributed.collectives import capacity_all_to_all
 from ..kernels.ref import mix32
@@ -193,3 +208,97 @@ def walks_to_tokens(walks, vocab: int) -> Tuple:
         return toks[:, :-1], toks[:, 1:].copy()
     toks = (walks % vocab).to(torch.int32)
     return toks[:, :-1], toks[:, 1:].clone()
+
+
+# ---------------------------------------------------------------------------
+# external sampler (the redistribute phase re-run once per hop, on disk)
+# ---------------------------------------------------------------------------
+
+
+class ExternalWalkResult(NamedTuple):
+    """external_walks output: the sharded corpus plus the accounting objects
+    tests and benchmarks assert against."""
+
+    walks: "ShardedWalks"        # [W, length+1] int64 array-like (disk-backed
+                                 # per-bucket shards + manifest, core/corpus.py)
+    ledger: IOLedger
+    gauge: MemoryGauge
+    orchestrator: PhaseOrchestrator
+
+
+def external_walks(cfg, workdir: str, *, num_walkers: int, length: int,
+                   seed: int = 0, ledger: Optional[IOLedger] = None,
+                   gauge: Optional[MemoryGauge] = None,
+                   checkpoint: bool = False,
+                   out_name: str = "walks.npy",
+                   device="cuda") -> ExternalWalkResult:
+    """Out-of-core walk corpus [num_walkers, length+1] over the CSR bucket
+    files in `workdir` (written by StreamingGenerator / PartitionedGenerator's
+    CSR phase) — the graph never materializes in RAM, and neither does the
+    corpus: the collect phase is SHARDED (one `{out}_b{j}.npy` per bucket +
+    a manifest, core/corpus.py), and `result.walks` is an array-like view
+    over the shards.
+
+    Each hop is the paper's redistribute phase applied to walkers: sort the
+    per-bucket frontier by current vertex, sort-merge-join it against the
+    owned offv/adjv runs, partition advanced walkers to their new owner
+    (core/phases.py walk kernels).  Bit-identical to host_walks on the
+    assembled bucket CSR (concat_bucket_csr) with walker_ids arange(W) and
+    the standard start_vertex starts.  With checkpoint=True each hop is a
+    resumable phase (state in <workdir>/walk_phases.json, independent of the
+    generator's checkpoint); phase-level ledger deltas and peak resident
+    rows come back in the result.
+
+    Runs the bucket kernels in-process; for real process parallelism use
+    PartitionedGenerator.walk_corpus, which drives the same kernels through
+    its worker pool.  The frontier partitions run on `device` (a PlainCfg
+    passed as `cfg` keeps its own).
+
+    Every per-hop frontier sort and the history gather merge through
+    cfg.merge_fanin-bounded cascades (blockstore.merge_runs via PlainCfg),
+    so walking a store with millions of frontier runs never exceeds the
+    open-file budget — identical corpus at any fan-in.
+    """
+    pcfg = cfg if isinstance(cfg, PlainCfg) else plain_config(cfg, device)
+    ledger = IOLedger() if ledger is None else ledger
+    gauge = MemoryGauge(budget_rows=pcfg.chunk_edges) if gauge is None else gauge
+    wcfg = WalkCfg(num_walkers=num_walkers, length=length, seed=seed,
+                   out_name=out_name)
+    orch = PhaseOrchestrator(workdir, ledger, checkpoint=checkpoint,
+                             state_name="walk_phases.json",
+                             config_key=repr((result_config_key(pcfg), wcfg)),
+                             keep_all=bool(getattr(cfg, "keep_phase_stores",
+                                                   False)))
+
+    # One transport for the whole corpus: the kernels' exchange AND the
+    # drivers' pre-senders inbox sweeps go through it (fs by default;
+    # a socket config with live peer_addrs works too — the partitioned
+    # driver is the usual owner of that mode).
+    with make_transport(pcfg, workdir, ledger, gauge) as tr:
+
+        def inline_map(kernel: str, argss):
+            # Outputs matter: the pooled-cascade hop plans its merge levels
+            # from the counts the sort kernels return.
+            return [_KERNELS[kernel](pcfg, workdir, *args, ledger=ledger,
+                                     gauge=gauge, transport=tr)
+                    for args in argss]
+
+        path = drive_walks(pcfg, workdir, wcfg, inline_map, orch, transport=tr)
+    return ExternalWalkResult(ShardedWalks(path), ledger, gauge, orch)
+
+
+def concat_bucket_csr(csr) -> Tuple[np.ndarray, np.ndarray]:
+    """Assemble per-bucket CSR [(offv_i, adjv_i)] into one host (offv, adjv).
+
+    Oracle-side helper: within-row adjacency order is part of the walk
+    contract, so host_walks must read the SAME layout external_walks joins
+    against.  Materializes the CSR — tests and small graphs only.
+    """
+    parts = [np.zeros(1, np.int64)]
+    total = 0
+    for offv, _ in csr:
+        offv = np.asarray(offv, np.int64)
+        parts.append(offv[1:] + total)
+        total += int(offv[-1])
+    adjv = np.concatenate([np.asarray(a, np.int64) for _, a in csr])
+    return np.concatenate(parts), adjv

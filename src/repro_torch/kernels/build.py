@@ -9,7 +9,9 @@ libraries are loaded with `ctypes`.  Every C entry point returns
 
 `LAUNCHES` counts the launches of each kernel: a wrapper adds one exactly
 where it launches its kernel, and nowhere else (`flash_attention` adds one
-to its own count and one to that of the kernel it launched).
+to its own count and one to that of the kernel it launched).  The disk
+tier's worker processes count their own; `PartitionedGenerator` adds them
+to this process's at each barrier (`add_worker_launches`).
 """
 
 from __future__ import annotations
@@ -54,6 +56,12 @@ _COUNTERS: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_worker_launches(counts: dict) -> None:
+    """Add the launches a worker process counted (its `LAUNCHES` delta)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def counters(device: torch.device, stream: int, n: int) -> torch.Tensor:

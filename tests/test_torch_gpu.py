@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, and
+the disk tier's per-chunk hooks against their CPU path.
 
 Marked `gpu`: they skip where torch.cuda.is_available() is false.  This file
 imports no jax, so it runs on a machine that has only the port's packages:
@@ -186,3 +187,157 @@ def test_rebuilt_library_loads_every_kernel(cuda, tmp_path, monkeypatch):
     assert "flash_attention_decode_kernel" in logs and "flash_attention_prefill_kernel" in logs
     assert "rmat_edges_kernel" in logs
     assert build.build() == paths and not list(tmp_path.glob("*.tmp"))
+
+
+# ---------------------------------------------------------------------------
+# the disk tier's per-chunk hooks (core/chunks.py): card == plain path
+# ---------------------------------------------------------------------------
+
+CHUNK_SHAPES = [1 << 14, 1 << 21, 100_003, 0]
+
+
+def _hook_cfg(scale=20):
+    from repro_torch.core.phases import plain_config
+    return plain_config(GraphConfig(scale=scale, nb=8), "cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", CHUNK_SHAPES)
+def test_rmat_chunk_on_the_card(cuda, count):
+    import numpy as np
+
+    from repro_torch.core import chunks
+    pcfg = _hook_cfg()
+    start = (1 << 32) - 5000
+    before = ops.LAUNCHES["rmat_edges"]
+    got = chunks.rmat_chunk(pcfg, start, count, cuda)
+    assert ops.LAUNCHES["rmat_edges"] == before + (count > 0)
+    want = chunks.rmat_chunk(pcfg, start, count, "cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == np.int64 and g.flags.c_contiguous
+        assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", CHUNK_SHAPES)
+@pytest.mark.parametrize("n", [1 << 20, 1_000_003])
+def test_graph_perm_chunk_on_the_card(cuda, count, n):
+    import numpy as np
+
+    from repro_torch.core import chunks
+    x = np.random.default_rng(count).integers(0, n, count, dtype=np.int64)
+    before = ops.LAUNCHES["feistel_perm"]
+    got = chunks.graph_perm_chunk(0x5EED, x, n, 4, cuda)
+    assert ops.LAUNCHES["feistel_perm"] > before or count == 0
+    assert got.tobytes() == chunks.graph_perm_chunk(0x5EED, x, n, 4, "cpu").tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", CHUNK_SHAPES)
+def test_partition_chunk_on_the_card(cuda, count):
+    import numpy as np
+
+    from repro_torch.core import chunks
+    rng = np.random.default_rng(count + 1)
+    cols = (rng.integers(0, 1 << 20, count, dtype=np.int64),
+            rng.integers(0, 1 << 20, count, dtype=np.int64))
+    before = ops.LAUNCHES["bucket_hist"]
+    got, counts = chunks.partition_chunk(cols, lambda a, b: a // (1 << 17), 8, cuda, "s")
+    assert ops.LAUNCHES["bucket_hist"] == before + 1
+    want, want_counts = chunks.partition_chunk(cols, lambda a, b: a // (1 << 17), 8, "cpu", "s")
+    assert counts.tobytes() == want_counts.tobytes() and int(counts.sum()) == count
+    assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [-1, 8, 1 << 40])
+def test_partition_chunk_on_the_card_rejects_a_planted_bucket(cuda, bad):
+    import numpy as np
+
+    from repro_torch.core import chunks
+    a = np.arange(1 << 14, dtype=np.int64)
+    a[777] = bad * 2048
+    with pytest.raises(ValueError, match=f"bucket {bad} outside"):
+        chunks.partition_chunk((a, a), lambda s, d: s // 2048, 8, cuda, "planted")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", CHUNK_SHAPES)
+def test_gather_chunk_on_the_card(cuda, count):
+    import numpy as np
+
+    from repro_torch.core import chunks
+    rng = np.random.default_rng(count + 2)
+    base, rows = 3 << 17, 1 << 17
+    vals = rng.permutation(1 << 20)[:rows].astype(np.int64)
+    keys = np.sort(rng.integers(base, base + rows, count, dtype=np.int64))
+    before = ops.LAUNCHES["relabel_gather"]
+    got = chunks.gather_chunk(keys, chunks.table_block(vals, cuda), base)
+    assert ops.LAUNCHES["relabel_gather"] == before + (count > 0)
+    want = chunks.gather_chunk(keys, chunks.table_block(vals, "cpu"), base)
+    assert got.dtype == np.int64 and got.tobytes() == want.tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["external", "recompute"])
+def test_partitioned_workers_on_the_card_write_the_cpu_files(cuda, tmp_path, variant):
+    """Two spawned workers run the hooks on the card: their launches reach
+    the parent's counts, and the files equal an in-process CPU run's."""
+    import hashlib
+    import os
+
+    from repro_torch.core.phases import PartitionedGenerator
+
+    def shas(d):
+        return {f: hashlib.sha256(open(os.path.join(d, f), "rb").read()).hexdigest()
+                for f in sorted(os.listdir(d)) if f.endswith(".npy")}
+
+    cfg = GraphConfig(scale=12, nb=4, edge_factor=8, chunk_edges=4096,
+                      shuffle_variant=variant)
+    with PartitionedGenerator(cfg, str(tmp_path / "cpu"), max_workers=0, device="cpu") as p:
+        p.run()
+    build.reset_launches()
+    with PartitionedGenerator(cfg, str(tmp_path / "card"), max_workers=2, device=cuda) as p:
+        p.run()
+    assert shas(str(tmp_path / "card")) == shas(str(tmp_path / "cpu"))
+    kernels = ["rmat_edges", "bucket_hist"] + (
+        ["feistel_perm"] if variant == "recompute" else ["relabel_gather"])
+    assert all(ops.LAUNCHES[k] > 0 for k in kernels), dict(ops.LAUNCHES)
+
+
+@pytest.mark.gpu
+def test_external_walks_on_the_card_write_the_cpu_corpus(cuda, tmp_path):
+    """external_walks and ExternalWalkLoader with device cuda: the corpus
+    shards equal a CPU run's over the same CSR files, the loader's batches
+    too, and the walk's frontier partitions launched bucket_hist."""
+    import hashlib
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core.external import StreamingGenerator
+    from repro_torch.data import ExternalWalkLoader, LoaderConfig
+    from repro_torch.data.walks import external_walks
+
+    def shas(d):
+        return {f: hashlib.sha256(open(os.path.join(d, f), "rb").read()).hexdigest()
+                for f in sorted(os.listdir(d)) if f.endswith(".npy")}
+
+    cfg = GraphConfig(scale=11, nb=4, edge_factor=8, chunk_edges=2048,
+                      shuffle_variant="external", merge_fanin=4)
+    cpu_dir, card_dir = str(tmp_path / "cpu"), str(tmp_path / "card")
+    StreamingGenerator(cfg, cpu_dir, device="cpu").run()
+    shutil.copytree(cpu_dir, card_dir)
+    want = external_walks(cfg, cpu_dir, num_walkers=300, length=9, seed=3, device="cpu")
+    build.reset_launches()
+    got = external_walks(cfg, card_dir, num_walkers=300, length=9, seed=3, device=cuda)
+    assert ops.LAUNCHES["bucket_hist"] > 0
+    assert shas(card_dir) == shas(cpu_dir)
+    np.testing.assert_array_equal(np.asarray(got.walks), np.asarray(want.walks))
+    lc = LoaderConfig(batch_size=16, seq_len=9, seed=3)
+    a = ExternalWalkLoader(cfg, cpu_dir, lc, num_walkers=300, device="cpu")
+    b = ExternalWalkLoader(cfg, card_dir, lc, num_walkers=300, device=cuda)
+    for step in (0, 19):
+        x, y = a.batch(step), b.batch(step)
+        assert all(y[k].device.type == "cuda" and torch.equal(y[k].cpu(), x[k]) for k in x)

@@ -181,6 +181,10 @@ for name in names:
     importlib.import_module(name)
 assert {"repro_torch.serve", "repro_torch.models", "repro_torch.launch.serve",
         "repro_torch.data", "repro_torch.data.walks", "repro_torch.data.loader"} <= set(names)
+assert {f"repro_torch.core.{m}" for m in ("trace", "blockstore", "shardmap", "transport",
+        "corpus", "phases", "external", "chunks", "hostgen", "types")} <= set(names)
+from repro_torch.core import PartitionedGenerator, StreamingGenerator
+from repro_torch.data import ExternalWalkLoader, concat_bucket_csr, external_walks
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules), "reference imported"
 print(len(names))
 """
