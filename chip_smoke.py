@@ -50,8 +50,9 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    through `core/chunks.py`; each in a temporary workdir, deleted after):
    external_parity runs StreamingGenerator (external shuffle with sorted
    and scatter CSR, recompute, device shuffle) and PartitionedGenerator
-   (4 workers: external and recompute over the filesystem, external over
-   sockets) at scale 16, nb 8, chunks of 2^14, on the card and on the CPU,
+   (4 workers, recompute over the filesystem; its external runs are the
+   cluster phases' below) at scale 16, nb 8, chunks of 2^14, on the card
+   and on the CPU,
    each run a process of its own: every file a run leaves has the same
    sha256 on both, and the card's runs launched all four graph kernels;
    external_main runs StreamingGenerator at scale 20 (2^24 edges, nb 8,
@@ -65,6 +66,25 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    PartitionedGenerator (recompute, 4 workers on the card, scale 18) and
    holds its CSR files to an external+feistel StreamingGenerator run;
    the kernel phase also times the four graph kernels at these chunk shapes;
+   then the cluster runtime (`core/cluster.py`, `core/jobqueue.py`: hosts
+   are processes of their own, `python -m repro_torch.launch.cluster host`,
+   each with its own workdir and CUDA context, exchanging over loopback
+   sockets): cluster_parity runs a 2-host ClusterGenerator (scale 16,
+   external shuffle, sorted CSR, a 4096 x 3 walk corpus) and a 2-host
+   JobScheduler draining two jobs (the external graph; a recompute one with
+   the fused generate+relabel and two fused corpora of 256 x 3) at
+   max_concurrent 2, each with card hosts and with CPU hosts, the four
+   drivers started beside external_parity's runs: every CSR file and
+   corpus shard equal card vs CPU, the graph run's equal to
+   external_parity's streaming-external-sorted run, no dead letter, no
+   restart, and the card hosts' reports must show launches of rmat_edges,
+   relabel_gather, bucket_hist and (the recompute job's) feistel_perm;
+   cluster_main runs external_main's configuration on 2 card
+   hosts with 2 pool workers each, launch counts set to 0 just before the
+   hosts start and read after the run: wall seconds, edges/s, seconds per
+   phase, the merged ledger, host peak rows, restarts, the hosts' launches
+   and nvidia-smi's utilization.gpu over the run; zero random transfers and
+   CSR files with external_main's sha256;
 5. serve_parity phase: the serve path's smoke configs (internlm2, codeqwen;
    f32) on the card and on the CPU: prefill and decode logits within 1e-4,
    the Engine's tokens equal;
@@ -90,6 +110,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -133,17 +154,17 @@ WALK_SEED = 0
 WALK_PARITY_WALKERS = 256          # walks_parity, on the scale-16 graph
 # The disk tier (StreamingGenerator / PartitionedGenerator): external_parity
 # runs every driver and variant at scale 16 on the card and on the CPU, each
-# run a process of its own; external_main is the out-of-core Graph500 run on
-# the card; external_recompute the partitioned communication-free one, held
-# to an external+feistel streaming run.
+# run a process of its own (the partitioned external variant over sockets and
+# the filesystem is left to cluster_parity's graph run, card hosts against CPU
+# hosts, and cluster_main, pool workers on the card against external_main,
+# which run the same partitioned phases and hooks); external_main is the
+# out-of-core Graph500 run on the card; external_recompute the partitioned
+# communication-free one, held to an external+feistel streaming run.
 DISK_PARITY_SCALE, DISK_PARITY_CHUNK = 16, 1 << 14
 DISK_MAIN_SCALE, DISK_MAIN_CHUNK = 20, 1 << 21
 DISK_RECOMPUTE_SCALE, DISK_RECOMPUTE_CHUNK = 18, 1 << 20
 DISK_WORKERS = 4                   # PartitionedGenerator's worker processes
 DISK_PARITY_RUNS = (               # (name, driver, GraphConfig fields)
-    ("partitioned-external-socket", "partitioned", {"shuffle_variant": "external",
-                                                    "transport": "socket"}),
-    ("partitioned-external-fs", "partitioned", {"shuffle_variant": "external"}),
     ("partitioned-recompute-fs", "partitioned", {"shuffle_variant": "recompute"}),
     ("streaming-external-sorted", "streaming", {"shuffle_variant": "external"}),
     ("streaming-external-scatter", "streaming", {"shuffle_variant": "external",
@@ -570,13 +591,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
-    # 4. the disk tier: card == CPU for every driver and variant, then the
-    # out-of-core main run and the partitioned communication-free run
+    # 4. the disk tier: card == CPU for every driver and variant, and
+    # beside them for the cluster runtime's host processes; then the
+    # out-of-core main run, the partitioned communication-free run, and
+    # the out-of-core main configuration on two card hosts
     # ------------------------------------------------------------------
-    external_parity_phase(torch, dev)
-    main_counts["external_main"] = external_main_phase(torch, ops, dev)
+    cluster_parity_phase(lambda: external_parity_phase(torch, dev))
+    main_counts["external_main"], external_csr = external_main_phase(torch, ops, dev)
     torch.cuda.empty_cache()
     main_counts["external_recompute"] = external_recompute_phase(torch, ops, dev)
+    main_counts["cluster_main"] = cluster_main_phase(torch, ops, dev, external_csr)
 
     # ------------------------------------------------------------------
     # 5-6. the serve path: card == CPU on the smoke configs, then the
@@ -910,6 +934,56 @@ def disk_run_child(argv) -> int:
     return 0
 
 
+class ChildRuns:
+    """`chip_smoke.py` child processes (`--disk-run`, `--cluster-run`), one
+    per (name, side, args), all started together with their output in
+    `tmp`, CUDA hidden from the CPU side's; each in a session of its own, so
+    that its process group holds what it starts (a cluster run's hosts).
+    `results()` waits for each (at most `timeout` seconds from the start)
+    and returns {(name, side): the JSON of its last line}, failing on a
+    nonzero exit; leaving the block kills every group still running."""
+
+    def __init__(self, label, tmp, jobs, timeout=None):
+        self.label, self.tmp, self.jobs, self.timeout = label, tmp, jobs, timeout
+        self.procs = []
+
+    def __enter__(self):
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        self.t = time.perf_counter()
+        try:
+            for name, side, args in self.jobs:
+                out = open(Path(self.tmp) / f"{name}-{side}.log", "w+")
+                child_env = env if side == "cuda" else dict(env, CUDA_VISIBLE_DEVICES="")
+                self.procs.append((name, side, out, subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), *args], stdout=out,
+                    stderr=subprocess.STDOUT, env=child_env, start_new_session=True)))
+        except BaseException:
+            self.__exit__()
+            raise
+        return self
+
+    def results(self) -> dict:
+        out = {}
+        for name, side, log, proc in self.procs:
+            left = None if self.timeout is None else self.timeout - (time.perf_counter() - self.t)
+            proc.wait(timeout=None if left is None else max(1.0, left))
+            log.seek(0)
+            text = log.read()
+            require(proc.returncode == 0, f"{self.label}: {name} on {side} failed "
+                    f"({proc.returncode}):\n{text[-3000:]}")
+            out[(name, side)] = json.loads(text.strip().splitlines()[-1])
+        return out
+
+    def __exit__(self, *exc):
+        for *_, log, proc in self.procs:   # stop every run and host still running
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+            log.close()
+
+
 def external_parity_phase(torch, dev):
     """Every disk-tier driver and variant at scale 16, nb 8, chunks of 2^14
     edges, on the card and on the CPU: the sha256 of every file each run
@@ -921,37 +995,19 @@ def external_parity_phase(torch, dev):
     all started together (the card's runs each with their own CUDA context;
     the host's cores are shared, so a run's seconds are not its time alone);
     the card's runs must have launched each of the four graph kernels.
-    Returns their launch counts, walks included."""
+    Returns every run's result by (name, "cuda" or "cpu")."""
     import tempfile
 
     common = {"scale": DISK_PARITY_SCALE, "nb": NB, "chunk_edges": DISK_PARITY_CHUNK}
-    jobs = [(name, side, driver, {**common, **fields})
-            for name, driver, fields in DISK_PARITY_RUNS for side in ("cuda", "cpu")]
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    results, procs, t = {}, [], time.perf_counter()
+    t = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="external_parity_") as tmp:
-        try:
-            for name, side, driver, fields in jobs:
-                out = open(Path(tmp) / f"{name}-{side}.log", "w+")
-                cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--disk-run", driver,
-                       json.dumps(fields), str(Path(tmp) / f"{name}-{side}"),
-                       "cuda:0" if side == "cuda" else "cpu", str(int(name in DISK_WALK_RUNS))]
-                child_env = env if side == "cuda" else dict(env, CUDA_VISIBLE_DEVICES="")
-                procs.append((name, side, out, subprocess.Popen(
-                    cmd, stdout=out, stderr=subprocess.STDOUT, env=child_env)))
-            for name, side, out, proc in procs:
-                proc.wait()
-                out.seek(0)
-                text = out.read()
-                require(proc.returncode == 0, f"external_parity: {name} on {side} failed "
-                        f"({proc.returncode}):\n{text[-3000:]}")
-                results[(name, side)] = json.loads(text.strip().splitlines()[-1])
-        finally:
-            for *_, out, proc in procs:     # after a failure, stop the other runs
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                out.close()
+        jobs = [(name, side, ["--disk-run", driver, json.dumps({**common, **fields}),
+                              str(Path(tmp) / f"{name}-{side}"),
+                              "cuda:0" if side == "cuda" else "cpu",
+                              str(int(name in DISK_WALK_RUNS))])
+                for name, driver, fields in DISK_PARITY_RUNS for side in ("cuda", "cpu")]
+        with ChildRuns("external_parity", tmp, jobs) as runs:
+            results = runs.results()
     launches = {k: 0 for k in results[(jobs[0][0], "cuda")]["launches"]}
     for name, _, _ in DISK_PARITY_RUNS:
         card, cpu = results[(name, "cuda")], results[(name, "cpu")]
@@ -982,7 +1038,7 @@ def external_parity_phase(torch, dev):
         require(launches[k] > 0, f"external_parity: no run launched {k}")
     emit({"phase": "external_parity", "runs": len(jobs), "equal": True, "launches": launches,
           "seconds": time.perf_counter() - t})
-    return launches
+    return results
 
 
 DISK_KERNELS = ("rmat_edges", "feistel_perm", "bucket_hist", "relabel_gather")
@@ -1031,7 +1087,8 @@ def external_main_phase(torch, ops, dev):
     time).  Validated
     on the card: pv equals the port's distributed_shuffle at nb 8, the sorted
     src * n + dst keys and the degrees of the CSR bucket files equal those of
-    the port's generate(cfg, "paper").  Returns the launch counts."""
+    the port's generate(cfg, "paper").  Returns the launch counts and the
+    sha256 of its CSR bucket files (cluster_main must write the same)."""
     import tempfile
 
     import numpy as np
@@ -1093,11 +1150,13 @@ def external_main_phase(torch, ops, dev):
                           "degrees_equal": deg_ok, "random_transfers":
                           line["ledger"]["rand_reads"] + line["ledger"]["rand_writes"]}
         line["validate_s"] = time.perf_counter() - t
+        csr_shas = {f: h for f, h in tree_shas(tmp).items() if f.startswith("csr_")}
         del want, src, dst, wsrc, wdst, valid, pv, csr, gen
     emit(line)
     require(pv_ok and keys_ok and deg_ok, f"external_main: validation failed {line['checks']}")
     require(line["checks"]["random_transfers"] == 0, "external_main: random I/O on the sorted path")
-    return counts
+    require(len(csr_shas) == 2 * NB, "external_main: CSR bucket files missing")
+    return counts, csr_shas
 
 
 def external_recompute_phase(torch, ops, dev):
@@ -1138,6 +1197,259 @@ def external_recompute_phase(torch, ops, dev):
     require(line["csr_files_equal"], "external_recompute: CSR files differ from external+feistel")
     for k in ("rmat_edges", "feistel_perm", "bucket_hist"):
         require(counts[k] > 0, f"external_recompute never launched {k}")
+    return counts
+
+
+# The cluster runtime (`core/cluster.py`, `core/jobqueue.py`): hosts are
+# processes of their own (`python -m repro_torch.launch.cluster host`), each
+# with its own workdir and CUDA context, exchanging over loopback sockets.
+CLUSTER_HOSTS = 2
+CLUSTER_WORKERS = 2                # cluster_main's pool workers per host
+# The queue's fused corpora: the fused hop leaves its frontier in many small
+# runs, each partitioned apart (one partition_chunk: copies, launches and
+# syncs of fixed cost on the card); at 4096 walkers each the queue made 39032
+# of them and took 316.6 s on card hosts (one H100 80GB HBM3, 700 W), so its
+# corpora have 256 walkers (scripts/time_cluster.py --config queue times 4096).
+CLUSTER_QUEUE_WALKS = ((256, DISK_WALK_LENGTH, 0, "a.npy"),
+                       (256, DISK_WALK_LENGTH, 1, "b.npy"))
+CLUSTER_TIMEOUT_S = 900            # cluster_parity's drivers, external_parity beside them
+
+
+def host_backend(workers: int = 0):
+    """The local exec backend whose hosts import this checkout's port."""
+    from repro_torch.core.cluster import LocalExecBackend
+
+    return LocalExecBackend(workers=workers, env={"PYTHONPATH": str(ROOT / "src")})
+
+
+def host_file_shas(spec, sub: str = "") -> dict:
+    """{sub/file: sha256} of the .npy files each host left in its workdir (in
+    its job subdir `sub`): CSR bucket files and corpus shards; no file name
+    may be on two hosts."""
+    import hashlib
+
+    out = {}
+    for h in spec.hosts:
+        d = Path(h.workdir) / sub
+        for path in sorted(d.glob("*.npy")):
+            key = f"{sub}/{path.name}" if sub else path.name
+            require(key not in out, f"{key} is on two hosts")
+            out[key] = hashlib.sha256(path.read_bytes()).hexdigest()
+    return out
+
+
+def cluster_run(kind: str, device: str, workdir: str) -> dict:
+    """One cluster_parity run on CLUSTER_HOSTS local hosts at scale 16, nb 8,
+    chunks of 2^14, socket exchange, every host's hooks on `device`.
+    "graph": a ClusterGenerator run (external shuffle, sorted CSR) and a
+    DISK_WALKERS x DISK_WALK_LENGTH walk corpus.  "queue": a JobScheduler
+    (max_concurrent 2) draining two submitted jobs, the external graph and a
+    recompute one with the fused generate+relabel and two fused corpora.
+    Returns the seconds, the launch counts the hosts reported, restarts,
+    dead letters and the sha256 of every file the hosts left."""
+    from repro_torch.core.cluster import ClusterGenerator, ClusterSpec
+    from repro_torch.core.jobqueue import JobScheduler, submit_job
+    from repro_torch.core.types import GraphConfig
+    from repro_torch.kernels import ops
+
+    cfg = GraphConfig(scale=DISK_PARITY_SCALE, nb=NB, chunk_edges=DISK_PARITY_CHUNK,
+                      shuffle_variant="external", transport="socket")
+    spec = ClusterSpec.local(CLUSTER_HOSTS, str(Path(workdir) / "hosts"), nb=NB)
+    ctrl = str(Path(workdir) / "ctrl")
+    ops.reset_launches()
+    t = time.perf_counter()
+    out = {}
+    if kind == "graph":
+        gen = ClusterGenerator(cfg, spec, ctrl, backend=host_backend(), checkpoint=True,
+                               device=device)
+        try:
+            gen.run()
+            out["graph_s"] = time.perf_counter() - t
+            gen.walk_corpus(DISK_WALKERS, DISK_WALK_LENGTH)
+            out["walk_s"] = time.perf_counter() - t - out["graph_s"]
+            restarts, dead = gen.controller.restarts, []
+        finally:
+            gen.close()
+        shas = host_file_shas(spec)
+    else:
+        submit_job(ctrl, cfg, name="external")
+        submit_job(ctrl, cfg.with_(shuffle_variant="recompute"), walks=CLUSTER_QUEUE_WALKS,
+                   fuse_walks=True, fuse_gen_relabel=True, name="recompute")
+        with JobScheduler(spec, ctrl, backend=host_backend(), max_concurrent=2,
+                          device=device) as sched:
+            summary = sched.drain()
+            restarts, dead = sched.controller.restarts, summary["dead_letters"]
+        require([j["status"] for j in summary["jobs"]] == ["done", "done"],
+                f"cluster_parity: queue jobs {summary['jobs']}")
+        shas = {**host_file_shas(spec, "job0000"), **host_file_shas(spec, "job0001")}
+    return {**out, "seconds": time.perf_counter() - t, "launches": dict(ops.LAUNCHES),
+            "restarts": {str(h): n for h, n in restarts.items()}, "dead_letters": dead,
+            "shas": shas}
+
+
+def cluster_run_child(argv) -> int:
+    """`chip_smoke.py --cluster-run KIND DEVICE WORKDIR`: one cluster_parity
+    run (its driver and hosts) in processes of their own; its result is the
+    last line of its standard output."""
+    sys.path.insert(0, str(ROOT / "src"))
+    print(json.dumps(cluster_run(argv[0], argv[1], argv[2])), flush=True)
+    return 0
+
+
+def cluster_parity_phase(alongside):
+    """The cluster runtime, card hosts against CPU hosts: the "graph" and
+    "queue" runs of `cluster_run`, each with hosts on the card and with hosts
+    on the CPU, the four drivers (each a process with its hosts) started
+    together, and `alongside()` (external_parity, which returns its runs)
+    run while they run: their barriers and pool starts leave cores idle.
+    Every CSR bucket file and corpus shard the hosts left must
+    have equal sha256 card vs CPU; the graph run's must equal those of
+    external_parity's streaming-external-sorted run on the card (the same
+    graph and, through ExternalWalkLoader, the same corpus); no job may be
+    dead-lettered and no host restarted; the card hosts must have launched
+    rmat_edges, relabel_gather and bucket_hist, and the queue's feistel_perm
+    (launched by its recompute job alone)."""
+    import tempfile
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cluster_parity_") as tmp:
+        jobs = [(kind, side, ["--cluster-run", kind, side, str(Path(tmp) / f"{kind}-{side}")])
+                for kind in ("graph", "queue") for side in ("cuda", "cpu")]
+        with ChildRuns("cluster_parity", tmp, jobs, timeout=CLUSTER_TIMEOUT_S) as runs:
+            parity_runs = alongside()
+            results = runs.results()
+    stream = parity_runs[("streaming-external-sorted", "cuda")]["shas"]
+    for kind in ("graph", "queue"):
+        card, cpu = results[(kind, "cuda")], results[(kind, "cpu")]
+        require(card["shas"] == cpu["shas"], f"cluster_parity: {kind} files differ card vs CPU")
+        for r in (card, cpu):
+            require(not r["dead_letters"],
+                    f"cluster_parity: {kind} dead letters {r['dead_letters']}")
+            require(not any(r["restarts"].values()),
+                    f"cluster_parity: {kind} restarts {r['restarts']}")
+        require(sum(cpu["launches"].values()) == 0, f"cluster_parity: {kind} launched on the CPU")
+        for k in ("rmat_edges", "relabel_gather", "bucket_hist") + (
+                ("feistel_perm",) if kind == "queue" else ()):
+            require(card["launches"][k] > 0,
+                    f"cluster_parity: {kind}'s card hosts never launched {k}")
+        line = {"phase": "cluster_parity", "run": kind, "hosts": CLUSTER_HOSTS,
+                "scale": DISK_PARITY_SCALE, "nb": NB, "chunk_edges": DISK_PARITY_CHUNK,
+                "files_equal": len(card["shas"]), "card_s": card["seconds"],
+                "cpu_s": cpu["seconds"],
+                **{f"{side}_{k}": r[k] for side, r in (("card", card), ("cpu", cpu))
+                   for k in ("graph_s", "walk_s") if k in r},
+                "card_launches": {k: v for k, v in card["launches"].items() if v}}
+        if kind == "graph":
+            shared = {f for f in card["shas"] if f.startswith(("csr_", "walks_b"))}
+            require(len(shared) == 3 * NB and all(card["shas"][f] == stream.get(f) for f in shared),
+                    "cluster_parity: the graph run's files differ from streaming-external-sorted's")
+            line["equal_to_streaming_external_sorted"] = len(shared)
+        emit(line)
+    emit({"phase": "cluster_parity", "runs": len(jobs), "equal": True,
+          "seconds": time.perf_counter() - t})
+
+
+class GpuSampler:
+    """`nvidia-smi` sampling the card's utilization.gpu (the share of each
+    sample period in which a kernel ran, from any process) and memory.used
+    every `period_ms`, in a process of its own; stopped on exit."""
+
+    def __init__(self, period_ms: int = 200):
+        self.period_ms = period_ms
+
+    def __enter__(self):
+        import tempfile
+
+        self.out = tempfile.TemporaryFile("w+")
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu,memory.used",
+             "--format=csv,noheader,nounits", "-lms", str(self.period_ms)],
+            stdout=self.out, stderr=subprocess.DEVNULL)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.seek(0)
+        rows = [line.split(",") for line in self.out.read().splitlines() if "," in line]
+        self.out.close()
+        self.util = [float(r[0]) for r in rows]
+        self.mem_mib = [float(r[1]) for r in rows]
+
+    def summary(self) -> dict:
+        if not self.util:
+            return {"samples": 0, "utilization_mean": "not measured"}
+        return {"samples": len(self.util), "period_ms": self.period_ms,
+                "utilization_mean": statistics.mean(self.util) / 100,
+                "utilization_max": max(self.util) / 100,
+                "memory_used_max_mib": max(self.mem_mib)}
+
+
+def cluster_main_phase(torch, ops, dev, external_csr):
+    """external_main's configuration (scale 20, 2^24 edges, nb 8, external
+    shuffle, sorted CSR, chunks of 2^21, I/O overlap) on CLUSTER_HOSTS card
+    hosts with CLUSTER_WORKERS pool workers each, socket exchange: the hosts
+    start (rendezvous, timed apart), then ClusterGenerator.run, launch
+    counts set to 0 just before the hosts start and read just after the
+    run (the hosts' reports carry them).  Prints the wall seconds, edges/s,
+    seconds per phase (fine-grained: every clean and barrier its own, and
+    summed by their first word), the merged ledger, host peak rows, the
+    restarts, each kernel's launches, and nvidia-smi's utilization.gpu and
+    memory.used over the run (the kernels run in the host processes, which
+    torch.profiler here cannot see).  Requires zero random transfers, no
+    restart, and CSR bucket files with the sha256 of external_main's.
+    Returns the launch counts."""
+    import tempfile
+
+    from repro_torch.core.cluster import ClusterGenerator, ClusterSpec
+    from repro_torch.core.types import GraphConfig
+
+    cfg = GraphConfig(scale=DISK_MAIN_SCALE, nb=NB, chunk_edges=DISK_MAIN_CHUNK,
+                      shuffle_variant="external", csr_variant="sorted", io_overlap=True,
+                      transport="socket")
+    with tempfile.TemporaryDirectory(prefix="cluster_main_") as tmp:
+        spec = ClusterSpec.local(CLUSTER_HOSTS, str(Path(tmp) / "hosts"), nb=NB)
+        ops.reset_launches()
+        with GpuSampler() as sampler:
+            t = time.perf_counter()
+            gen = ClusterGenerator(cfg, spec, str(Path(tmp) / "ctrl"),
+                                   backend=host_backend(CLUSTER_WORKERS), checkpoint=True,
+                                   device=dev)
+            start_s = time.perf_counter() - t
+            try:
+                t = time.perf_counter()
+                gen.run(cfg.csr_variant)
+                wall = time.perf_counter() - t
+                counts = dict(ops.LAUNCHES)
+                restarts = dict(gen.controller.restarts)
+                busy = dict(gen.controller.busy_seconds)
+                line = disk_line("cluster_main", cfg, gen, wall, {
+                    "hosts": CLUSTER_HOSTS, "workers_per_host": CLUSTER_WORKERS,
+                    "start_s": start_s, "restarts": restarts, "launches": counts,
+                    "host_busy_s": busy, "ledger_full": gen.ledger.as_dict()})
+            finally:
+                gen.close()
+        csr = host_file_shas(spec)
+    groups = {}
+    for name, sec in line["phase_s"].items():
+        groups[name.split("_")[0]] = groups.get(name.split("_")[0], 0.0) + sec
+    line["phase_group_s"] = groups
+    line["gpu"] = sampler.summary()
+    line["cut"] = "scale 20 (external_main's), cut from Graph500 toy 26 for the script's time"
+    line["csr_equal_to_external_main"] = (
+        {f: h for f, h in csr.items() if f.startswith("csr_")} == external_csr)
+    emit(line)
+    require(line["ledger"]["rand_reads"] + line["ledger"]["rand_writes"] == 0,
+            "cluster_main: random I/O on the sorted path")
+    require(not any(restarts.values()), f"cluster_main: hosts restarted {restarts}")
+    require(line["csr_equal_to_external_main"],
+            "cluster_main: CSR files differ from external_main's")
+    for k in ("rmat_edges", "relabel_gather", "bucket_hist"):
+        require(counts[k] > 0, f"cluster_main: the hosts never launched {k}")
     return counts
 
 
@@ -1477,4 +1789,6 @@ def serve_trace(torch, engine, cfg):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--disk-run"]:
         sys.exit(disk_run_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cluster-run"]:
+        sys.exit(cluster_run_child(sys.argv[2:]))
     sys.exit(main())

@@ -30,7 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import bucket, relabel_gather, rmat
-from .hostgen import FEISTEL_ROUNDS, graph_perm_key, perm_domain_bits
+from .hostgen import FEISTEL_ROUNDS, MASK32, graph_perm_key, perm_domain_bits
 
 INT32_MAX = (1 << 31) - 1
 
@@ -51,8 +51,12 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def rmat_chunk(pcfg, start: int, count: int, device) -> Tuple[np.ndarray, np.ndarray]:
     """int64 (src, dst) of the edges with global ids [start, start+count) mod
-    2^32: `hostgen.rmat_edges_np_cfg` through the `rmat_edges` kernel."""
+    2^32: `hostgen.rmat_edges_np_cfg` through the `rmat_edges` kernel.  A
+    start outside [0, 2^32) raises the reference's `OverflowError` (its
+    `np.uint32(start)`); a chunk that runs past 2^32 wraps, as there."""
     dev = resolve_device(device)
+    if not 0 <= int(start) <= MASK32:
+        raise OverflowError(f"Python integer {int(start)} out of bounds for uint32")
     if not 1 <= pcfg.scale <= 31:
         raise ValueError(f"rmat_chunk: int32 ids need 1 <= scale <= 31, got {pcfg.scale}")
     src, dst = rmat.rmat_edges(pcfg, start, count, dev)

@@ -70,6 +70,18 @@ def test_rmat_chunk_wraps_at_2_32():
         _same_array(g, w)
 
 
+@pytest.mark.parametrize("start", [1 << 32, -1, 1 << 40])
+def test_rmat_chunk_start_outside_uint32_raises_like_reference(start):
+    """A start outside [0, 2^32) is the reference's `np.uint32(start)`
+    OverflowError, message and all, never a silently wrapped chunk."""
+    pcfg = _pcfg(10)
+    with pytest.raises(OverflowError) as want:
+        ref_hostgen.rmat_edges_np_cfg(pcfg, start, 1)
+    with pytest.raises(OverflowError) as got:
+        chunks.rmat_chunk(pcfg, start, 1, "cpu")
+    assert str(got.value) == str(want.value)
+
+
 def test_rmat_chunk_empty_and_scale_guard():
     pcfg = _pcfg(10)
     s, d = chunks.rmat_chunk(pcfg, 5, 0, "cpu")

@@ -341,3 +341,98 @@ def test_external_walks_on_the_card_write_the_cpu_corpus(cuda, tmp_path):
     for step in (0, 19):
         x, y = a.batch(step), b.batch(step)
         assert all(y[k].device.type == "cuda" and torch.equal(y[k].cpu(), x[k]) for k in x)
+
+
+# ---------------------------------------------------------------------------
+# the cluster runtime: hosts that run their hooks on the card
+# ---------------------------------------------------------------------------
+
+
+def _cluster_files(cfg, root, device, backend, walks=False, **kw):
+    """Run a 2-host ClusterGenerator of cfg on `device` under root (and a
+    W 64 x L 3 corpus with `walks`); returns ({host file: sha256}, the
+    generator's restarts)."""
+    import hashlib
+    import os
+
+    from repro_torch.core.cluster import ClusterGenerator, ClusterSpec
+
+    spec = ClusterSpec.local(2, os.path.join(root, "hosts"), nb=cfg.nb)
+    gen = ClusterGenerator(cfg.with_(transport="socket"), spec, os.path.join(root, "ctrl"),
+                           backend=backend, checkpoint=True, device=device, **kw)
+    try:
+        gen.run()
+        if walks:
+            gen.walk_corpus(64, 3)
+        restarts = dict(gen.controller.restarts)
+    finally:
+        gen.close()
+    out = {}
+    for h in spec.hosts:
+        for f in sorted(os.listdir(h.workdir)):
+            if f.endswith(".npy"):
+                out[f] = hashlib.sha256(open(os.path.join(h.workdir, f), "rb").read()).hexdigest()
+    return out, restarts
+
+
+def _local_backend(**kw):
+    import os
+
+    import repro_torch
+    from repro_torch.core.cluster import LocalExecBackend
+
+    src = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
+    return LocalExecBackend(env={"PYTHONPATH": src}, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,workers", [("external", 0), ("recompute", 2)])
+def test_two_host_cluster_on_the_card_writes_the_cpu_files(cuda, tmp_path, variant, workers):
+    """Two host processes (each with its own CUDA context, and with 2 pool
+    workers each for recompute) run the hooks on the card: the CSR files and
+    corpus shards equal a 2-host CPU cluster's, and the hosts' launches of
+    every kernel of the variant reach this process's counts."""
+    cfg = GraphConfig(scale=12, nb=4, edge_factor=8, chunk_edges=4096, shuffle_variant=variant)
+    want, _ = _cluster_files(cfg, str(tmp_path / "cpu"), "cpu", _local_backend(), walks=True)
+    build.reset_launches()
+    got, _ = _cluster_files(cfg, str(tmp_path / "card"), cuda, _local_backend(workers=workers),
+                            walks=True)
+    assert got == want and len(got) == 3 * cfg.nb
+    kernels = ["rmat_edges", "bucket_hist"] + (
+        ["feistel_perm"] if variant == "recompute" else ["relabel_gather"])
+    assert all(ops.LAUNCHES[k] > 0 for k in kernels), dict(ops.LAUNCHES)
+
+
+@pytest.mark.gpu
+def test_killed_card_host_is_relaunched_and_writes_the_cpu_files(cuda, tmp_path):
+    """A card host killed mid-phase (hard exit after 6 tasks) is relaunched by
+    the controller; the run's files still equal a CPU cluster's."""
+    from repro_torch.core.cluster import LocalExecBackend
+
+    class KillHost1First(LocalExecBackend):
+        def host_args(self, host, attempt):
+            return ["--max-tasks", "6"] if host.host_id == 1 and attempt == 0 else []
+
+    cfg = GraphConfig(scale=12, nb=4, edge_factor=8, chunk_edges=4096,
+                      shuffle_variant="external")
+    want, _ = _cluster_files(cfg, str(tmp_path / "cpu"), "cpu", _local_backend())
+    backend = KillHost1First(env=_local_backend().env)
+    got, restarts = _cluster_files(cfg, str(tmp_path / "card"), cuda, backend, max_restarts=1)
+    assert restarts[1] == 1
+    assert got == want
+
+
+@pytest.mark.gpu
+def test_cluster_entry_points_raise_where_cuda_is_unavailable(cuda, tmp_path, monkeypatch):
+    """On a machine whose torch reports no CUDA, ClusterGenerator and
+    JobScheduler with the default device raise before any host starts."""
+    from repro_torch.core.cluster import ClusterGenerator, ClusterSpec
+    from repro_torch.core.jobqueue import JobScheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = ClusterSpec.local(2, str(tmp_path / "hosts"), nb=4)
+    cfg = GraphConfig(scale=12, nb=4, shuffle_variant="external", transport="socket")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ClusterGenerator(cfg, spec, str(tmp_path / "ctrl"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        JobScheduler(spec, str(tmp_path / "q"))

@@ -182,8 +182,13 @@ for name in names:
 assert {"repro_torch.serve", "repro_torch.models", "repro_torch.launch.serve",
         "repro_torch.data", "repro_torch.data.walks", "repro_torch.data.loader"} <= set(names)
 assert {f"repro_torch.core.{m}" for m in ("trace", "blockstore", "shardmap", "transport",
-        "corpus", "phases", "external", "chunks", "hostgen", "types")} <= set(names)
-from repro_torch.core import PartitionedGenerator, StreamingGenerator
+        "corpus", "phases", "external", "chunks", "hostgen", "types", "cluster",
+        "jobqueue")} <= set(names)
+assert "repro_torch.launch.cluster" in names
+from repro_torch.core import ClusterGenerator, HostRunner, PartitionedGenerator, StreamingGenerator
+from repro_torch.core.cluster import ClusterController, LocalExecBackend
+from repro_torch.core.jobqueue import JobScheduler, submit_job
+from repro_torch.launch.cluster import main as cluster_main
 from repro_torch.data import ExternalWalkLoader, concat_bucket_csr, external_walks
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules), "reference imported"
 print(len(names))
@@ -195,13 +200,17 @@ print(len(names))
     assert int(r.stdout.strip()) >= 20
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """device="cuda" on a machine without CUDA raises; nothing falls back."""
     from repro_torch.core import shuffle
     from repro_torch.core.rmat import rmat_edge_block
     from repro_torch.kernels import ops
 
     from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cluster import ClusterGenerator, ClusterSpec
+    from repro_torch.core.jobqueue import JobScheduler
+    from repro_torch.core.phases import plain_config
+    from repro_torch.launch import cluster as launch_cluster
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import init_all, transformer
     from repro_torch.serve import Engine, Request, generate_reference
@@ -228,7 +237,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: Engine(lm, lm_params, max_batch=2, max_len=16, device="cuda"),
         lambda: generate_reference(lm, lm_params, Request(uid=0, prompt=[1])),
         lambda: launch_serve.main([]),
+        lambda: ClusterGenerator(cfg.with_(transport="socket", shuffle_variant="external"),
+                                 ClusterSpec.local(2, str(tmp_path / "h"), nb=2),
+                                 str(tmp_path / "c")),
+        lambda: ClusterGenerator(plain_config(cfg.with_(transport="socket"), "cpu"),
+                                 ClusterSpec.local(2, str(tmp_path / "h"), nb=2),
+                                 str(tmp_path / "c"), device="cuda"),
+        lambda: JobScheduler(ClusterSpec.local(2, str(tmp_path / "h"), nb=2),
+                             str(tmp_path / "q")),
+        lambda: launch_cluster.main(["run", "--workdir", str(tmp_path / "r"), "--nb", "2"]),
+        lambda: launch_cluster.main(["drain", "--workdir", str(tmp_path / "d"), "--nb", "2"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+    assert not os.listdir(tmp_path)     # the cluster's entry points started nothing
