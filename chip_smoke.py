@@ -13,18 +13,22 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    1-D bulk copies; prefill: wgmma + TMA) are held, row by row, to their
    error relative to the row's largest value (`flash_attention.row_error`):
    1e-5 in f32 (the sum order differs), 2^-6 in bf16 (two bf16 ulps of the
-   row's largest value), in cases (a)-(i), and planted faults at the main
-   path's shapes (the softmax scale 5 % off; the last 32 keys of each row
-   dropped) must exceed that limit.  `bucket_hist` is timed at the main
+   row's largest value), in cases (a)-(i) and MLA's (j)-(l) (q and k 192
+   wide, v 128), and planted faults at the main paths' shapes (the softmax
+   scale 5 % off; the last 32 keys of each row dropped) must exceed that
+   limit.  `bucket_hist` is timed at the main
    shape, at walks_main's call, at the walk shape of capacity factor 4, at
-   k 64 and with no ids (its fixed cost, beside an empty kernel), each with
+   k 64 and with no ids (its fixed cost, beside an empty kernel), at
+   serve_moe's expert dispatch (k 64: an admission's 2048 x 6 ids, a decode
+   wave's 8 x 6), each with
    bincount beside it; it is checked on two slices that start off a 16-byte
    boundary, and a planted fault (one id skipped) must fail the comparison.
    Before that, the attention library's `ptxas -v` report and SASS give
    each kernel instance's registers and spills, and the run fails unless
    every prefill instance issues HGMMA and UTMALDG and every decode instance
-   an asynchronous copy (UBLKCP or LDGSTS), and unless no `bucket_hist`
-   instance spills;
+   an asynchronous copy (UBLKCP or LDGSTS), unless no decode and no
+   `bucket_hist` instance spills, and unless MLA's (192, 128) instances
+   were built;
 2. variant phase: every generate() variant at scale 16, nb 8, on the card
    and on the CPU, bit-equal; then walks_parity: distributed_walks (length
    80, 256 walkers per shard) and WalkLoader batches 0-2 on that graph,
@@ -85,9 +89,11 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    phase, the merged ledger, host peak rows, restarts, the hosts' launches
    and nvidia-smi's utilization.gpu over the run; zero random transfers and
    CSR files with external_main's sha256;
-5. serve_parity phase: the serve path's smoke configs (internlm2, codeqwen;
-   f32) on the card and on the CPU: prefill and decode logits within 1e-4,
-   the Engine's tokens equal;
+5. serve_parity phase: the serve path's smoke configs (internlm2, codeqwen,
+   qwen3-moe; f32) and the deepseek-v2 smoke at MLA's real head widths and
+   routing (q/k 192, v 128, 64 experts top-6; its own (24, 16) heads, which
+   the kernel does not take, must raise on the card) on the card and on the
+   CPU: prefill and decode logits within 1e-4, the Engine's tokens equal;
 6. serve_main phase: the continuous-batching Engine serving internlm2-1.8b
    at full width (bf16, random weights from a seeded generator on the card),
    8 slots of 4096 positions, 16 requests of 128-2048 prompt tokens and 64
@@ -97,7 +103,18 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    prefill kernel's layers x prefills and the decode kernel's layers x
    decode waves; then a
    short window of the same engine under torch.profiler (`serve_trace`:
-   the card's busy share and device time by kernel).
+   the card's busy share and device time by kernel);
+7. serve_moe phase: the same Engine and requests serving deepseek-v2-lite-16b
+   at full width and depth (27 layers, MLA + 64-expert MoE, bf16, random
+   weights from a seeded generator on the card): every request served,
+   logits finite, no decode drop, flash launches = 27 x (prefills + decode
+   waves) split as in serve_main, bucket_hist launches = 26 MoE layers x
+   (prefills + decode waves), no host sync inside a MoE layer (CUDA sync
+   debug mode "error" around each `moe_ffn`); MoE dispatch ms (CUDA events
+   around `moe_ffn`) and the drop totals of prefill and decode, the prefill
+   drops recounted with plain ops from each layer's routes (equal to the
+   dispatch's count) and split between prompt rows and right-padding; then
+   its serve_trace window.
 
 Prints the card's name and power limit, one JSON line per check, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Any failed
@@ -139,7 +156,13 @@ SERVE_PROMPT_RANGE = (128, 2048)   # prompt lengths of a 1.8B chat / code model
 SERVE_SAMPLED = (3, 7, 11, 15)     # uids that sample (temperature 0.8, top-k 40)
 SERVE_SEED = 0
 TRACE_PROMPT, TRACE_NEW_TOKENS = 512, 32   # serve_trace's window
-PARITY_ARCHS = ("internlm2-1.8b", "codeqwen1.5-7b")
+MOE_ARCH = "deepseek-v2-lite-16b"   # serve_moe: the MoE + MLA config that fits one card
+PARITY_ARCHS = ("internlm2-1.8b", "codeqwen1.5-7b", "qwen3-moe-235b-a22b", MOE_ARCH)
+# deepseek-v2's smoke at the real MLA head widths (q/k 128 + 64, v 128) and
+# routing (64 experts, top-6, unnormalised weights), a few layers; the
+# smoke's own (24, 16) heads are not a width the kernel takes
+PARITY_MLA = dict(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128, num_experts=64,
+                  experts_per_tok=6, norm_topk_prob=False)
 PARITY_TOL = 1e-4                  # f32 logits, card vs CPU: the sum order differs
 WALK_LENGTH = 80                   # DeepWalk's walk length (Perozzi et al., KDD 2014)
 WALK_WALKERS = 1 << 20             # walkers per shard in walks_main: 2^23 walks
@@ -256,6 +279,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import validate as V
     from repro_torch.core.pipeline import generate, generate_baseline_hash, generate_edges
+    from repro_torch.configs import get_config
     from repro_torch.core.types import GraphConfig
     from repro_torch.kernels import bucket, build, ops, sass
 
@@ -422,6 +446,16 @@ def main() -> int:
     shapes["bucket_hist"][-1]["empty_kernel_ms"] = empty_ms
     emit({"kernel": "bucket_hist", "case": "an empty kernel (torch.cuda._sleep(0)), the floor "
           "of the fixed cost", "empty_kernel_ms": empty_ms})
+    # serve_moe's expert dispatch: the (token, choice) records' experts, k 64
+    moe_cfg = get_config(MOE_ARCH)
+    for case, tokens in (("an admission's prefill, 2048 tokens", 2048),
+                         ("a decode wave, 8 slots", SERVE_SLOTS)):
+        n, k = tokens * moe_cfg.experts_per_tok, moe_cfg.num_experts
+        dk = torch.randint(0, k, (n,), generator=g, device=dev, dtype=torch.int32)
+        check_kernel("bucket_hist", f"serve_moe dispatch, {case}: {n} ids, k {k}",
+                     lambda: ops.bucket_hist(dk, k), lambda: ops.bucket_hist_plain(dk, k),
+                     timed=True, main=False, n_bytes=4 * (n + k), n_ops=n * ops_per_item[hist_k64],
+                     library_fn=lambda: torch.bincount(dk, minlength=k), size=n)
     for k in (2, 8, 64):
         dk = torch.randint(0, k + 1, (1_000_003,), generator=g, device=dev, dtype=torch.int32)
         check_kernel("bucket_hist", f"k {k} with pad value k, n 1000003",
@@ -478,6 +512,8 @@ def main() -> int:
                  n_ops=ops_per_item["relabel_gather"] * seg.numel(), size=seg.numel())
     del xr, dk, block, seg
     flash = flash_phase(torch, ops, dev, g, time_ms)
+    shapes["flash_attention_prefill"] = [flash["j"]]
+    shapes["flash_attention_decode"] = [flash["k"], flash["l"]]
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------
@@ -603,12 +639,14 @@ def main() -> int:
     main_counts["cluster_main"] = cluster_main_phase(torch, ops, dev, external_csr)
 
     # ------------------------------------------------------------------
-    # 5-6. the serve path: card == CPU on the smoke configs, then the
-    # full-width Engine
+    # 5-7. the serve path: card == CPU on the smoke configs, then the
+    # full-width Engines (dense, then MoE + MLA)
     # ------------------------------------------------------------------
-    serve_parity_phase(torch, dev)
+    serve_parity_phase(torch, ops, dev)
     torch.cuda.empty_cache()
-    main_counts["serve_main"] = serve_main_phase(torch, ops, dev)
+    main_counts["serve_main"] = serve_phase(torch, ops, dev, SERVE_ARCH, "serve_main")
+    torch.cuda.empty_cache()
+    main_counts["serve_moe"] = serve_phase(torch, ops, dev, MOE_ARCH, "serve_moe")
 
     sources = {
         "rmat_edges": "src/repro/kernels/rmat.py:85",
@@ -644,7 +682,7 @@ def main() -> int:
                                 "ms": x["kernel_ms"], "plain_ms": x["plain_ms"],
                                 "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
                                 "library_ms": x["library_ms"],
-                                **{k: x[k] for k in ("empty_kernel_ms",) if k in x}}
+                                **{k: x[k] for k in ("empty_kernel_ms", "row_error") if k in x}}
                                for x in shapes[name]]
         kernels.append(entry)
     emit({"kernels": kernels})
@@ -1483,24 +1521,30 @@ def attention_build_phase(sass, lib):
                 require(row["async_copy"], f"{short}: no asynchronous copy in its SASS")
                 require(u.get("spill_stores") == 0 and u.get("spill_loads") == 0,
                         f"{short} spills: {u}")
+    # MLA's (192, 128): the prefill instance and the decode row buckets 1-8 of both types
+    mla = {row["kernel"] for row in found if "192,128" in row["kernel"]}
+    want = {"prefill<192,128>"} | {f"decode<{t},192,128,{r}>" for t in ("bf16", "f32")
+                                   for r in (1, 2, 4, 8)}
+    require(mla == want, f"MLA attention instances {sorted(mla)}, want {sorted(want)}")
     emit({"phase": "attention_build", "listing": lib.with_suffix(".sass").name,
           "instances": found})
 
 
-def _flash_bound(torch, q, k, offsets, causal):
+def _flash_bound(torch, q, k, v, offsets, causal):
     """(ms, "bytes" or "operations") of the least time for these inputs: each
-    q and output element once, the K/V rows some query sees once; 4 D Hq
-    operations per visible (query, key) pair at the bf16 tensor-core peak."""
+    q and output element once, the K/V rows some query sees once; 2 (D + Dv)
+    Hq operations per visible (query, key) pair at the bf16 tensor-core peak
+    (q.k over D, p.v over Dv)."""
     B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if causal:
         i = offsets.cpu().long()[:, None] + 1 + torch.arange(Sq)[None, :]
         pairs = int(i.clamp(0, Skv).sum())
         kv_rows = int((offsets.cpu().long() + Sq).clamp(0, Skv).sum())
     else:
         pairs, kv_rows = B * Sq * Skv, B * Skv
-    n_bytes = q.element_size() * (2 * q.numel() + 2 * Hkv * D * kv_rows)
-    t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S, 4 * D * Hq * pairs / BF16_OPS_PER_S
+    n_bytes = q.element_size() * (B * Hq * Sq * (D + Dv) + Hkv * (D + Dv) * kv_rows)
+    t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S, 2 * (D + Dv) * Hq * pairs / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1512,9 +1556,12 @@ def flash_phase(torch, ops, dev, g, time_ms):
     kernel's split-KV path with ragged chunks, causal and not, (g) the
     prefill kernel with ragged tiles and GQA group 5, (h) a decode wave with
     GQA group 5 and ragged offsets (0, tile and chunk edges, the last key,
-    an idle slot past the cache), (i) a timed prefill of 512 queries.  In
-    (a), (b) and (h) the kernel is also run with planted faults, which the
-    check must reject."""
+    an idle slot past the cache), (i) a timed prefill of 512 queries; MLA's
+    widths (q, k 192; v 128; 16 heads, each its own kv head), as serve_moe
+    runs them: (j) an admission's prefill, (k) the decode wave, (l) f32 with
+    16 queries (two 8-row tiles; all timed, SDPA beside them where it takes
+    v narrower than q).  In (a), (b), (h) and (j)-(l) the kernel is also
+    run with planted faults, which the check must reject."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import TOLERANCE, plan, row_error
@@ -1526,7 +1573,9 @@ def flash_phase(torch, ops, dev, g, time_ms):
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     ragged = torch.tensor([0, 31, 480, 1500, 2999, 4094, 4095, 5096], dtype=torch.int32,
                           device=dev)
-    cases = {   # B, Hq, Hkv, Sq, Skv, D, offsets [B], causal, dtype, timed, planted faults
+    mla = (192, 128)
+    # B, Hq, Hkv, Sq, Skv, D (or (D, Dv)), offsets [B], causal, dtype, timed, planted faults
+    cases = {
         "a": ("prefill: B 1, Sq 2048 against the 4096-slot cache, offset 0, D 128, bf16",
               1, 16, 8, 2048, SERVE_MAX_LEN, 128, zero, True, bf16, True, True),
         "b": ("decode wave: B 8, Sq 1, Skv 4096, per-slot offsets in [127, 4094], D 128, bf16",
@@ -1549,12 +1598,22 @@ def flash_phase(torch, ops, dev, g, time_ms):
               B, 40, 8, 1, SERVE_MAX_LEN, 128, ragged, True, bf16, False, True),
         "i": ("prefill: B 1, Sq 512 against the 4096-slot cache, offset 0, D 128, bf16",
               1, 16, 8, 512, SERVE_MAX_LEN, 128, zero, True, bf16, True, False),
+        "j": ("MLA prefill: B 1, H 16, Sq 2048 at offset 2048 of the 4096-slot cache, "
+              "D 192, Dv 128, bf16", 1, 16, 16, 2048, SERVE_MAX_LEN, mla,
+              torch.tensor([2048], dtype=torch.int32, device=dev), True, bf16, True, True),
+        "k": ("MLA decode wave: B 8, H 16, Sq 1, Skv 4096, per-slot offsets in [127, 4094], "
+              "D 192, Dv 128, bf16", B, 16, 16, 1, SERVE_MAX_LEN, mla, decode_off, True, bf16,
+              True, True),
+        "l": ("MLA f32: B 2, H 16, Sq 16, Skv 4096, offsets [1000, 4080], D 192, Dv 128",
+              2, 16, 16, 16, SERVE_MAX_LEN, mla,
+              torch.tensor([1000, 4080], dtype=torch.int32, device=dev), True, f32, True, True),
     }
     out = {}
     for key, (case, B_, Hq, Hkv, Sq, Skv, D, off, causal, dtype, timed, planted) in cases.items():
+        D, Dv = D if isinstance(D, tuple) else (D, D)
         q = torch.randn(B_, Hq, Sq, D, generator=g, device=dev).to(dtype)
         k = torch.randn(B_, Hkv, Skv, D, generator=g, device=dev).to(dtype)
-        v = torch.randn(B_, Hkv, Skv, D, generator=g, device=dev).to(dtype)
+        v = torch.randn(B_, Hkv, Skv, Dv, generator=g, device=dev).to(dtype)
         kernel = lambda: ops.flash_attention(q, k, v, causal=causal, offset=off)  # noqa: E731
         plain = lambda: ops.flash_attention_plain(q, k, v, causal=causal, offset=off)  # noqa: E731
         got, want = kernel(), plain()
@@ -1564,7 +1623,7 @@ def flash_phase(torch, ops, dev, g, time_ms):
         require(err <= tol, f"flash_attention [{key}] differs from its plain version: "
                             f"row error {err} > {tol}")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        path = plan(dtype, B_, Hq, Hkv, Sq, Skv, D, sms).kernel
+        path = plan(dtype, B_, Hq, Hkv, Sq, Skv, D, Dv, sms).kernel
         line = {"kernel": f"flash_attention_{path}", "case": case, "dtype": str(dtype),
                 "row_error": err,
                 "tolerance": tol, "max_abs_diff": float((got.float() - want.float()).abs().max())}
@@ -1587,7 +1646,7 @@ def flash_phase(torch, ops, dev, g, time_ms):
             line["kernel_ms"] = time_ms(kernel)
             line["plain_ms"] = time_ms(plain, reps=3)
             line["library_ms"] = time_ms(library)
-            line["bound_ms"], line["bound_by"] = _flash_bound(torch, q, k, off, causal)
+            line["bound_ms"], line["bound_by"] = _flash_bound(torch, q, k, v, off, causal)
             del mask
         emit(line)
         out[key] = line
@@ -1614,9 +1673,12 @@ def _serve_requests(n, vocab, rng, plen, max_new, sampled):
     return reqs
 
 
-def serve_parity_phase(torch, dev):
-    """The smoke configs (f32, D 16) on the card and on the CPU: the same
-    parameters give logits within PARITY_TOL and the Engine the same tokens."""
+def serve_parity_phase(torch, ops, dev):
+    """The smoke configs (f32) on the card and on the CPU: the same
+    parameters give logits within PARITY_TOL and the Engine the same tokens,
+    the card's runs launching flash_attention and, for MoE, bucket_hist.
+    deepseek-v2's smoke runs at MLA's real widths (PARITY_MLA): its own
+    (24, 16) heads must raise on the card."""
     import numpy as np
 
     from repro_torch.configs import get_smoke_config
@@ -1626,10 +1688,23 @@ def serve_parity_phase(torch, dev):
     for arch in PARITY_ARCHS:
         cfg = get_smoke_config(arch)
         api = get_model(cfg)
+        if cfg.kv_lora_rank:
+            params = init_all(cfg, seed=SERVE_SEED, device=dev)
+            try:
+                api.prefill(cfg, params, {"tokens": torch.zeros((1, 8), dtype=torch.int32,
+                                                                device=dev)},
+                            api.init_cache(cfg, 1, 64, dev))
+                raised = ""
+            except ValueError as e:
+                raised = str(e)
+            require("head dims" in raised,
+                    f"serve_parity {arch}: the smoke's MLA heads did not raise on the card")
+            cfg = cfg.with_(name=f"{cfg.name}-mla-widths", **PARITY_MLA)
         on = {"cpu": init_all(cfg, seed=SERVE_SEED, device="cpu")}
         on["cuda"] = _to(on["cpu"], dev)
         tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
         logits = {}
+        ops.reset_launches()
         for where, params in on.items():
             d = dev if where == "cuda" else torch.device("cpu")
             t = torch.from_numpy(tokens).to(d)
@@ -1640,29 +1715,36 @@ def serve_parity_phase(torch, dev):
                 lg, cache = api.decode_step(cfg, params, t[:, i:i + 1], cache)
                 logits[where].append(lg)
         err = max(float((a.cpu() - b).abs().max()) for a, b in zip(logits["cuda"], logits["cpu"]))
-        require(err <= PARITY_TOL, f"serve_parity {arch}: logits card vs CPU differ by {err}")
+        require(err <= PARITY_TOL, f"serve_parity {cfg.name}: logits card vs CPU differ by {err}")
         served = {}
         for where, params in on.items():
             reqs = _serve_requests(8, cfg.vocab_size, np.random.default_rng(2), (1, 24), 8,
                                    sampled=(1, 4, 6))
             eng = Engine(cfg, params, max_batch=4, max_len=64, device=dev if where == "cuda" else "cpu")
             served[where] = (eng.run(reqs), eng.steps, eng.prefill_tokens, eng.decode_tokens)
-        require(served["cuda"] == served["cpu"], f"serve_parity {arch}: Engine differs card vs CPU")
+        require(served["cuda"] == served["cpu"],
+                f"serve_parity {cfg.name}: Engine differs card vs CPU")
+        launches = {n: ops.LAUNCHES[n] for n in ("flash_attention", "bucket_hist")}
+        require(launches["flash_attention"] > 0
+                and (launches["bucket_hist"] > 0) == (cfg.num_experts > 0),
+                f"serve_parity {cfg.name}: card launches {launches}")
         emit({"phase": "serve_parity", "arch": cfg.name, "dtype": cfg.dtype,
               "logits_max_abs_diff": err, "tolerance": PARITY_TOL, "tokens_equal": True,
-              "requests": len(served["cpu"][0]), "steps": served["cpu"][1]})
+              "requests": len(served["cpu"][0]), "steps": served["cpu"][1],
+              "card_launches": launches})
 
 
-def serve_main_phase(torch, ops, dev):
-    """internlm2-1.8b at full width behind the continuous-batching Engine.
-    Returns the launch counts of the run."""
+def serve_phase(torch, ops, dev, arch, label):
+    """`arch` at full width behind the continuous-batching Engine, then a
+    serve_trace window.  For an MoE config also the MoE layers' time and
+    drops, and bucket_hist's launches.  Returns the launch counts of the run."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.models import init_all, layers
+    from repro_torch.models import init_all, layers, moe, transformer
     from repro_torch.serve import Engine
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
@@ -1674,10 +1756,12 @@ def serve_main_phase(torch, ops, dev):
                            SERVE_PROMPT_RANGE, SERVE_NEW_TOKENS, SERVE_SAMPLED)
 
     # CUDA events around every prefill and decode wave, and around every
-    # attention call inside them; finiteness of every logit is folded on the
-    # card and read once at the end
+    # attention and MoE call inside them; finiteness of every logit and the
+    # MoE drops are folded on the card and read once at the end
     events = {"prefill": [], "decode": []}
     attn_events = {"prefill": [], "decode": []}
+    moe_events = {"prefill": [], "decode": []}
+    dropped = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in events}
     kind_now = ["prefill"]
     finite = [torch.ones((), dtype=torch.bool, device=dev)]
 
@@ -1704,8 +1788,36 @@ def serve_main_phase(torch, ops, dev):
         attn_events[kind_now[0]].append((a, b))
         return o
 
-    flash_attention = layers.flash_attention
-    layers.flash_attention = timed_attention
+    def timed_moe(*args, **kw):
+        a, b = pair()
+        a.record()
+        torch.cuda.set_sync_debug_mode("error")   # a MoE layer reads nothing back
+        try:
+            y, aux = moe_ffn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        b.record()
+        moe_events[kind_now[0]].append((a, b))
+        dropped[kind_now[0]] += aux["dropped"]
+        return y, aux
+
+    # each prefill MoE layer's experts beside its admission's prompt rows
+    # (the rest of the bucketed prefill is right-padding), for the drop split
+    prompt_rows, prefill_routes = [0], []
+
+    def admit(slot_idx, req):
+        prompt_rows[0] = len(req.prompt) - 1
+        return engine_admit(slot_idx, req)
+
+    def routed(*args, **kw):
+        out = route(*args, **kw)
+        if kind_now[0] == "prefill":
+            prefill_routes.append((out[1], prompt_rows[0]))
+        return out
+
+    flash_attention, moe_ffn, route = layers.flash_attention, transformer.moe_ffn, moe.route
+    layers.flash_attention, transformer.moe_ffn, moe.route = timed_attention, timed_moe, routed
+    engine_admit, engine._admit = engine._admit, admit
     engine.api = engine.api._replace(prefill=timed(engine.api.prefill, "prefill"),
                                      decode_step=timed(engine.api.decode_step, "decode"))
     ops.reset_launches()
@@ -1714,18 +1826,21 @@ def serve_main_phase(torch, ops, dev):
         out = engine.run(reqs)
         torch.cuda.synchronize()
     finally:
-        layers.flash_attention = flash_attention
+        layers.flash_attention, transformer.moe_ffn, moe.route = flash_attention, moe_ffn, route
+        del engine._admit   # the class's method again: no cycle keeps the engine alive
     wall = time.perf_counter() - t
     counts = dict(ops.LAUNCHES)
     prefill_ms = [a.elapsed_time(b) for a, b in events["prefill"]]
     decode_ms = [a.elapsed_time(b) for a, b in events["decode"]]
     attn_ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in attn_events.items()}
     new_tokens = sum(len(v) for v in out.values())
-    line = {"phase": "serve_main", "arch": cfg.name, "dtype": cfg.dtype,
-            "params": cfg.param_count(), "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+    admissions = len(prefill_ms)
+    line = {"phase": label, "arch": cfg.name, "dtype": cfg.dtype,
+            "params": cfg.param_count(), "layers": cfg.num_layers, "slots": SERVE_SLOTS,
+            "max_len": SERVE_MAX_LEN,
             "requests": len(out), "prompt_tokens": sum(len(r.prompt) for r in reqs),
             "prefill_tokens": engine.prefill_tokens, "decode_tokens": engine.decode_tokens,
-            "steps": engine.steps, "admissions": len(prefill_ms), "setup_s": setup_s,
+            "steps": engine.steps, "admissions": admissions, "setup_s": setup_s,
             "wall_s": wall, "output_tokens_per_s": new_tokens / wall,
             "prefill_ms_per_admission": statistics.mean(prefill_ms),
             "prefill_ms_total": sum(prefill_ms),
@@ -1741,21 +1856,60 @@ def serve_main_phase(torch, ops, dev):
             "flash_prefill_launches": counts["flash_attention_prefill"],
             "flash_decode_launches": counts["flash_attention_decode"], "launches": counts,
             "logits_finite": bool(finite[0])}
+    moe_layers = sum(cfg.num_experts > 0 and l >= cfg.first_k_dense for l in range(cfg.num_layers))
+    if moe_layers:
+        line.update({"moe_layers": moe_layers,
+                     "moe_ms_in_prefill": sum(a.elapsed_time(b) for a, b in moe_events["prefill"]),
+                     "moe_ms_in_decode": sum(a.elapsed_time(b) for a, b in moe_events["decode"]),
+                     "moe_calls": sum(map(len, moe_events.values())),
+                     "dropped_prefill": int(dropped["prefill"]),
+                     **_prefill_drop_split(torch, prefill_routes, cfg.num_experts),
+                     "dropped_decode": int(dropped["decode"]),
+                     "bucket_hist_launches": counts["bucket_hist"]})
     emit(line)
-    require(len(out) == SERVE_REQUESTS, f"serve_main: {len(out)} of {SERVE_REQUESTS} requests served")
+    require(len(out) == SERVE_REQUESTS, f"{label}: {len(out)} of {SERVE_REQUESTS} requests served")
     require(all(len(v) == SERVE_NEW_TOKENS for v in out.values()),
-            "serve_main: a request ended short of its new tokens")
-    require(line["logits_finite"], "serve_main: a logit is not finite")
-    require(counts["flash_attention"] == cfg.num_layers * (len(prefill_ms) + engine.steps),
-            f"serve_main: {counts['flash_attention']} flash launches != {cfg.num_layers} x "
-            f"({len(prefill_ms)} prefills + {engine.steps} decode waves)")
-    require(counts["flash_attention_prefill"] == cfg.num_layers * len(prefill_ms)
+            f"{label}: a request ended short of its new tokens")
+    require(line["logits_finite"], f"{label}: a logit is not finite")
+    require(counts["flash_attention"] == cfg.num_layers * (admissions + engine.steps),
+            f"{label}: {counts['flash_attention']} flash launches != {cfg.num_layers} x "
+            f"({admissions} prefills + {engine.steps} decode waves)")
+    require(counts["flash_attention_prefill"] == cfg.num_layers * admissions
             and counts["flash_attention_decode"] == cfg.num_layers * engine.steps,
-            f"serve_main: prefill / decode kernel launches {counts['flash_attention_prefill']} / "
+            f"{label}: prefill / decode kernel launches {counts['flash_attention_prefill']} / "
             f"{counts['flash_attention_decode']}, not layers x prefills / layers x waves")
+    require(counts["bucket_hist"] == moe_layers * (admissions + engine.steps),
+            f"{label}: {counts['bucket_hist']} bucket_hist launches != {moe_layers} MoE layers "
+            f"x ({admissions} prefills + {engine.steps} decode waves)")
+    if moe_layers:
+        require(line["dropped_decode"] == 0, f"{label}: {line['dropped_decode']} decode drops")
+        recount = line["dropped_prefill_prompt_rows"] + line["dropped_prefill_padding_rows"]
+        require(recount == line["dropped_prefill"],
+                f"{label}: {line['dropped_prefill']} prefill drops, {recount} recounted from the "
+                f"routes")
     serve_trace(torch, engine, cfg)
     del engine, params
     return counts
+
+
+def _prefill_drop_split(torch, routes, E):
+    """The prefill drops recounted from each MoE layer's experts [T, k] with
+    plain ops, and split by row: a (token, choice) record is dropped when
+    cap = max(8, T k 4 / E) records of its expert come before it in token
+    order; its token is a prompt row below the admission's prompt length,
+    else right-padding."""
+    prompt = padding = 0
+    for experts, n in routes:
+        T, k = experts.shape
+        cap = max(8, (T * k * 4) // E)
+        flat = experts.reshape(-1)
+        onehot = (flat[:, None] == torch.arange(E, device=flat.device)).int()
+        rank = onehot.cumsum(0).gather(1, flat[:, None])[:, 0] - 1
+        drop = rank >= cap
+        real = torch.arange(T * k, device=flat.device) // k < n
+        prompt += int((drop & real).sum())
+        padding += int((drop & ~real).sum())
+    return {"dropped_prefill_prompt_rows": prompt, "dropped_prefill_padding_rows": padding}
 
 
 def serve_trace(torch, engine, cfg):
@@ -1780,7 +1934,8 @@ def serve_trace(torch, engine, cfg):
     device_ms = sum(ms for _, ms, _ in rows)
     require(device_ms > 0, "serve_trace: the profiler saw no device time")
     rows.sort(key=lambda r: -r[1])
-    emit({"phase": "serve_trace", "requests": len(reqs), "prompt_tokens": TRACE_PROMPT,
+    emit({"phase": "serve_trace", "arch": cfg.name, "requests": len(reqs),
+          "prompt_tokens": TRACE_PROMPT,
           "new_tokens": TRACE_NEW_TOKENS,
           "wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
           "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:10]]})

@@ -1,4 +1,4 @@
-"""The dense architectures the port serves (copies of `repro/configs`).
+"""The dense and MoE architectures the port serves (copies of `repro/configs`).
 
 `get_config(name)` gives the published configuration, `get_smoke_config`
 the reduced same-family one of the CPU tests.

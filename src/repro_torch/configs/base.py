@@ -1,9 +1,9 @@
 """Model configuration schema + registry (copy of `repro/configs/base.py`).
 
 The fields and the published configurations are the reference's; `jdtype`
-becomes `torch_dtype`.  The port serves the dense family; the other
-architecture ids raise `NotImplementedError` naming the ROADMAP item that
-ports them.
+becomes `torch_dtype`.  The port serves the dense and moe families; the
+other architecture ids raise `NotImplementedError` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -137,11 +137,11 @@ _ARCH_MODULES = {
     "qwen2.5-32b": "qwen2p5_32b",
     "codeqwen1.5-7b": "codeqwen1p5_7b",
     "internlm2-1.8b": "internlm2_1p8b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
 }
 # the reference's other architectures, and the ROADMAP.md item that ports each
 NOT_PORTED = {
-    "qwen3-moe-235b-a22b": "queue 1 item 11b (MoE and MLA)",
-    "deepseek-v2-lite-16b": "queue 1 item 11b (MoE and MLA)",
     "mamba2-780m": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
     "zamba2-2.7b": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
     "seamless-m4t-large-v2": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",

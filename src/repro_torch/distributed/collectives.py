@@ -30,6 +30,7 @@ class Buckets(NamedTuple):
     valid: torch.Tensor     # [k, capacity] bool
     position: torch.Tensor  # [N] int64 dest*capacity + slot (k*capacity if dropped)
     dropped: torch.Tensor   # [] int32 records beyond capacity
+    counts: torch.Tensor    # [k] int32 records per destination (valid ones), from bucket_hist
 
 
 def bucket_by_destination(data: torch.Tensor, dest: torch.Tensor, k: int, capacity: int,
@@ -49,7 +50,8 @@ def bucket_by_destination(data: torch.Tensor, dest: torch.Tensor, k: int, capaci
     # Start of each destination group: exclusive prefix sum of the counts
     # (records with the sentinel k are not counted, so this equals the
     # reference's searchsorted over the sorted destinations).
-    counts = bucket_hist(dest, k).to(torch.int64)
+    hist = bucket_hist(dest, k)
+    counts = hist.to(torch.int64)
     group_start = torch.cumsum(counts, 0) - counts
     rank_sorted = (torch.arange(n, dtype=torch.int64, device=dev)
                    - group_start[sorted_dest.clamp(max=k - 1).to(torch.int64)])
@@ -75,12 +77,13 @@ def bucket_by_destination(data: torch.Tensor, dest: torch.Tensor, k: int, capaci
     flat = torch.zeros((k * capacity + junk,) + tail, dtype=data.dtype, device=dev)
     flat[write] = data
     occupied = torch.zeros(k * capacity + junk, dtype=torch.bool, device=dev)
-    occupied[write] = True
+    occupied.index_fill_(0, write, True)      # a scalar fill: no copy from the host
     return Buckets(
         data=flat[:k * capacity].reshape((k, capacity) + tail),
         valid=occupied[:k * capacity].reshape(k, capacity),
         position=slot,
         dropped=dropped,
+        counts=hist,
     )
 
 

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "feistel_perm_launch": [_P, _P, _LL, _I, _I, ctypes.POINTER(_U), _P],
     "relabel_gather_launch": [_P, _P, _P, _LL, _LL, _LL, _P],
     "bucket_hist_launch": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
-    "flash_attention_launch": [_P] * 8 + [_I] * 13 + [ctypes.c_float, _P],
+    "flash_attention_launch": [_P] * 8 + [_I] * 14 + [ctypes.c_float, _P],
 }
 
 _lib = None

@@ -5,7 +5,9 @@
 //                       path's repro/models/layers.py::_chunked_attention
 //
 // out[b,h,i] = sum_j softmax_j(scale * q[b,h,i].k[b,h/g,j]) v[b,h/g,j] over the
-// unmasked j (causal: j <= offset[b] + i; j < Skv always).  Online softmax in
+// unmasked j (causal: j <= offset[b] + i; j < Skv always), q and k DK wide, v
+// and out DV wide: DK = DV in {16, 32, 64, 128}, or MLA's (192, 128), whose
+// queries and keys carry a 64-wide rope part the values lack.  Online softmax in
 // exp2 units with the running max, sum and accumulator in f32 registers; a
 // row with every position masked gives 0, as the TPU kernel's finalize does.
 // In both kernels one block serves all g = Hq/Hkv query heads of its kv head
@@ -25,6 +27,8 @@
 //   a power-of-two bucket R >= g * bq (a template argument), so every loop
 //   over rows unrolls and no shuffle sits under a branch (the compiler would
 //   wrap each such shuffle in a WARPSYNC ... ENDCOLLECTIVE emulation loop).
+//   A 192-wide q row takes at most 8 rows a block (R <= 8): at R = 16 the
+//   per-row registers of the (128, 128) f32 instance already fill 254.
 //   A producer warp streams the chunk
 //   through a ring of kDecStages tiles of 32 keys with 1-D `cp.async.bulk`
 //   copies completing on mbarriers; the four consumer warps take the tiles in
@@ -35,23 +39,24 @@
 //   data, and K/V stay in their own type (bf16) in shared memory, converted
 //   as they are read.  In the score loop lane j owns key j and reads its
 //   16-byte vectors in lane-rotated order, so the 8 lanes of a shared-memory
-//   wavefront hit distinct banks; in P V lane j owns D/32 output columns.
+//   wavefront hit distinct banks; in P V lane j owns DV/32 output columns.
 //   The launcher splits the keys into chunks so that about 4 blocks per SM
 //   would exist for full caches; blocks past a slot's frontier return before
 //   loading anything, and the last block of a (slot, kv head, query tile) to
 //   finish (an atomic counter in a scratch buffer, reset by that block)
 //   merges the chunks that saw keys: no second launch.
 //
-// * flash_attention_prefill_kernel: bf16 with Sq >= 16 and D in {64, 128}.
-//   Bound by the tensor cores (4 D Hq operations per visible pair at 989
-//   TFLOP/s).  Both products run as wgmma m64nNk16 (bf16 in, f32
-//   accumulate): S = Q K^T with Q and K in shared memory (K-major), and
-//   O += P V with P in registers (S's accumulator rounded to bf16 is the
-//   A-operand layout) and V in shared memory read as an MN-major B through
-//   the descriptor's transpose bit.  One producer warp issues TMA loads
-//   (cp.async.bulk.tensor, 128-byte swizzle, tensor maps encoded per call):
-//   the block's Q tiles once and K/V tiles of 128 keys into a ring of
-//   kPreStages stages with full and empty mbarriers.  Two consumer
+// * flash_attention_prefill_kernel: bf16 with Sq >= 16 and (DK, DV) in
+//   {(64, 64), (128, 128), (192, 128)}.  Bound by the tensor cores (2 (DK +
+//   DV) Hq operations per visible pair at 989 TFLOP/s).  Both products run
+//   as wgmma m64nNk16 (bf16 in, f32 accumulate): S = Q K^T with Q and K in
+//   shared memory (K-major), and O += P V with P in registers (S's
+//   accumulator rounded to bf16 is the A-operand layout) and V in shared
+//   memory read as an MN-major B through the descriptor's transpose bit.
+//   One producer warp issues TMA loads (cp.async.bulk.tensor, 128-byte
+//   swizzle, tensor maps encoded per call): the block's Q tiles once and
+//   K/V tiles of 128 keys (DK / 64 and DV / 64 boxes of 64 columns) into a
+//   ring of kPreStages stages with full and empty mbarriers.  Two consumer
 //   warpgroups each own a 64-row query tile; a block's tiles are the g heads
 //   of one kv head (heads fastest), so both consume every K/V tile it loads.
 //   Tiles past the frontier are never loaded, only tiles that cross the
@@ -298,27 +303,31 @@ constexpr int kDecRows = 16;                        // (query head, query) rows 
 constexpr int kDecKeys = 32;                        // keys of one tile: one per lane
 constexpr int kDecStages = kDecWarps;               // ring of tiles; tile t: stage and warp t % 4
 
-template <typename T, int D, int R>
+template <typename T, int DK, int DV, int R>
 constexpr int decode_smem_bytes() {
   // K and V rings, the q rows, each warp's softmax weights, full and empty
   // barriers, the last-block flag
-  return (2 * kDecStages * kDecKeys + R) * D * static_cast<int>(sizeof(T)) +
+  return (kDecStages * kDecKeys * (DK + DV) + R * DK) * static_cast<int>(sizeof(T)) +
          kDecWarps * R * kDecKeys * 4 + 2 * kDecStages * 8 + 16;
 }
+
+// the most rows a block of q/k width DK takes (see the header)
+__host__ __device__ constexpr int dec_max_rows(int DK) { return DK == 192 ? 8 : kDecRows; }
 
 // Grid (qtiles * splits, Hkv, B).  Block (qt, split) takes queries
 // [qt*bq, qt*bq + nq) and keys [split*chunk, (split+1)*chunk) of kv head hk
 // of sequence b; its rows are r = i * nq + j: query head hk*g + i, query
-// qt*bq + j.  q is [B, Hq, Sq, D], k and v [B, Hkv, Skv, D], out like q, all
-// contiguous.  R, a power of two >= g * bq, sizes the per-row registers, so
-// every loop over rows is unrolled with no branch around a shuffle; rows
+// qt*bq + j.  q is [B, Hq, Sq, DK], k [B, Hkv, Skv, DK], v [B, Hkv, Skv, DV],
+// out [B, Hq, Sq, DV], all contiguous.  R, a power of two >= g * bq, sizes
+// the per-row registers, so every loop over rows is unrolled with no branch
+// around a shuffle; rows
 // r >= nrows = g * nq are dead and spend no FMA or shared-memory read (their
 // shuffles in the softmax reductions run, on -inf).  With splits > 1, a
 // block whose (slot, head, tile) saw more than one live chunk writes its
 // (m, l, acc) to part_ml [groups, splits, g*bq, 2] and part_acc [groups,
-// splits, g*bq, D] (group = (b*Hkv + hk) * qtiles + qt), and the last of
+// splits, g*bq, DV] (group = (b*Hkv + hk) * qtiles + qt), and the last of
 // them merges; counters [groups] are 0 on entry and left 0.
-template <typename T, int D, int R>
+template <typename T, int DK, int DV, int R>
 __global__ void __launch_bounds__(kDecThreads, 1)
 flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, T* __restrict__ out,
@@ -327,21 +336,22 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               int offset_scalar, int Hq, int Hkv, int Sq, int Skv, int bq,
                               int splits, int chunk, int causal, float scale_log2) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));   // elements of a 16-byte vector
-  constexpr int kVecs = D / kVec;                           // vectors of one row
-  constexpr int kCols = D >= 32 ? D / 32 : 1;               // output columns of a lane
-  static_assert((kVecs & (kVecs - 1)) == 0, "D / kVec must be a power of two");
-  static_assert(R <= kDecRows && (R & (R - 1)) == 0, "R: a power of two up to 16");
+  constexpr int kVecs = DK / kVec;                          // vectors of a q or k row
+  constexpr int kCols = DV >= 32 ? DV / 32 : 1;             // output columns of a lane
+  // the lane rotation below keeps 8 lanes on 8 distinct 16-byte bank groups
+  static_assert(kVecs % 8 == 0 || (kVecs & (kVecs - 1)) == 0, "DK / kVec: 2^n or 8 n");
+  static_assert(R <= dec_max_rows(DK) && (R & (R - 1)) == 0, "R: a power of two up to 16");
   extern __shared__ __align__(128) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);                 // [stages][keys][D]
-  T* vs = ks + kDecStages * kDecKeys * D;             // [stages][keys][D]
-  T* qs = vs + kDecStages * kDecKeys * D;             // [R][D]
-  float* ps = reinterpret_cast<float*>(qs + R * D);   // [warps][R][keys]
+  T* ks = reinterpret_cast<T*>(smem);                 // [stages][keys][DK]
+  T* vs = ks + kDecStages * kDecKeys * DK;            // [stages][keys][DV]
+  T* qs = vs + kDecStages * kDecKeys * DV;            // [R][DK]
+  float* ps = reinterpret_cast<float*>(qs + R * DK);  // [warps][R][keys]
   uint64_t* full = reinterpret_cast<uint64_t*>(ps + kDecWarps * R * kDecKeys);
   uint64_t* empty = full + kDecStages;
   int* last_flag = reinterpret_cast<int*>(empty + kDecStages);
   // after the key loop the rings hold the warps' partial results
-  float* w_acc = reinterpret_cast<float*>(smem);      // [warps][R][D]
-  float* w_ml = w_acc + kDecWarps * R * D;            // [warps][R][2]
+  float* w_acc = reinterpret_cast<float*>(smem);      // [warps][R][DV]
+  float* w_ml = w_acc + kDecWarps * R * DV;           // [warps][R][2]
 
   const int g = Hq / Hkv;
   const int qtiles = (Sq + bq - 1) / bq;
@@ -370,7 +380,7 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = e / kVecs, c = e % kVecs;
     const int h = hk * g + r / nq;
     const int64_t row = (static_cast<int64_t>(b) * Hq + h) * Sq + q0 + r % nq;
-    reinterpret_cast<uint4*>(qs + r * D)[c] = reinterpret_cast<const uint4*>(q + row * D)[c];
+    reinterpret_cast<uint4*>(qs + r * DK)[c] = reinterpret_cast<const uint4*>(q + row * DK)[c];
   }
   __syncthreads();
 
@@ -388,16 +398,18 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (warp == kDecWarps) {
     // producer: keeps up to kDecStages tiles in flight ahead of the warps
     if (lane == 0) {
-      const int64_t kv_base = (static_cast<int64_t>(b) * Hkv + hk) * Skv * D;
+      const int64_t kv_rows = (static_cast<int64_t>(b) * Hkv + hk) * Skv;
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % kDecStages;
         if (t >= kDecStages) mbar_wait(&empty[s], ((t / kDecStages) - 1) & 1);
         const int k0 = kv_begin + t * kDecKeys;
-        const uint32_t bytes = min(kDecKeys, kv_stop - k0) * D * static_cast<uint32_t>(sizeof(T));
-        mbar_expect_tx(&full[s], 2 * bytes);
-        const int64_t at = kv_base + static_cast<int64_t>(k0) * D;
-        bulk_load(ks + s * kDecKeys * D, k + at, bytes, &full[s]);
-        bulk_load(vs + s * kDecKeys * D, v + at, bytes, &full[s]);
+        const uint32_t keys = min(kDecKeys, kv_stop - k0);
+        const uint32_t kbytes = keys * DK * static_cast<uint32_t>(sizeof(T));
+        const uint32_t vbytes = keys * DV * static_cast<uint32_t>(sizeof(T));
+        mbar_expect_tx(&full[s], kbytes + vbytes);
+        const int64_t row = kv_rows + k0;
+        bulk_load(ks + s * kDecKeys * DK, k + row * DK, kbytes, &full[s]);
+        bulk_load(vs + s * kDecKeys * DV, v + row * DV, vbytes, &full[s]);
       }
     }
   } else {
@@ -407,8 +419,8 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mbar_wait(&full[s], (t / kDecStages) & 1);
       const int k0 = kv_begin + t * kDecKeys;
       const int nk = min(kDecKeys, kv_stop - k0);   // keys of the tile; the rest is stale
-      const T* kt = ks + s * kDecKeys * D;
-      const T* vt = vs + s * kDecKeys * D;
+      const T* kt = ks + s * kDecKeys * DK;
+      const T* vt = vs + s * kDecKeys * DV;
 
       // scores: lane j holds key k0 + j, its vectors read in lane-rotated order
       float sc[R];
@@ -416,14 +428,14 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int r = 0; r < R; ++r) sc[r] = 0.f;
 #pragma unroll 2
       for (int step = 0; step < kVecs; ++step) {
-        const int c = (step + lane) & (kVecs - 1);
+        const int c = (step + lane) % kVecs;
         float kf[kVec];
-        unpack16(kt + lane * D + c * kVec, kf);
+        unpack16(kt + lane * DK + c * kVec, kf);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < nrows) {   // warp-uniform
             float qf[kVec];
-            unpack16(qs + r * D + c * kVec, qf);
+            unpack16(qs + r * DK + c * kVec, qf);
 #pragma unroll
             for (int e = 0; e < kVec; ++e) sc[r] = fmaf(qf[e], kf[e], sc[r]);
           }
@@ -450,12 +462,13 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncwarp();
 
       // P V: lane owns columns [lane * kCols, +kCols); only the nk loaded keys
-      if (lane * kCols < D) {
+      if (lane * kCols < DV) {
         int j = 0;
         for (; j + 4 <= nk; j += 4) {
           float vf[4][kCols];
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) load_cols<kCols>(vt + (j + jj) * D + lane * kCols, vf[jj]);
+          for (int jj = 0; jj < 4; ++jj)
+            load_cols<kCols>(vt + (j + jj) * DV + lane * kCols, vf[jj]);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             if (r < nrows) {
@@ -472,7 +485,7 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         for (; j < nk; ++j) {
           float vf[kCols];
-          load_cols<kCols>(vt + j * D + lane * kCols, vf);
+          load_cols<kCols>(vt + j * DV + lane * kCols, vf);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             if (r < nrows) {
@@ -493,10 +506,10 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r < nrows) {
-        if (lane * kCols < D) {
+        if (lane * kCols < DV) {
 #pragma unroll
           for (int c = 0; c < kCols; ++c)
-            w_acc[(warp * R + r) * D + lane * kCols + c] = acc[r][c];
+            w_acc[(warp * R + r) * DV + lane * kCols + c] = acc[r][c];
         }
         if (lane == 0) {
           w_ml[2 * (warp * R + r)] = m[r];
@@ -512,8 +525,8 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool single = live_chunks == 1;
   const int rows = g * bq;
   const int64_t group = (static_cast<int64_t>(b) * Hkv + hk) * qtiles + qt;
-  for (int e = threadIdx.x; e < nrows * D; e += kDecThreads) {
-    const int r = e / D, col = e % D;
+  for (int e = threadIdx.x; e < nrows * DV; e += kDecThreads) {
+    const int r = e / DV, col = e % DV;
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, w_ml[2 * (w * R + r)]);
@@ -525,15 +538,15 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (mw == -INFINITY) continue;
         const float wt = exp2f(mw - M);
         L = fmaf(wt, w_ml[2 * (w * R + r) + 1], L);
-        A = fmaf(wt, w_acc[(w * R + r) * D + col], A);
+        A = fmaf(wt, w_acc[(w * R + r) * DV + col], A);
       }
     }
     if (single) {
       const int64_t row = (static_cast<int64_t>(b) * Hq + hk * g + r / nq) * Sq + q0 + r % nq;
-      out[row * D + col] = from_f32<T>(L > 0.f ? A / L : 0.f);
+      out[row * DV + col] = from_f32<T>(L > 0.f ? A / L : 0.f);
     } else {
       const int64_t prow = (group * splits + split) * rows + r;
-      part_acc[prow * D + col] = A;
+      part_acc[prow * DV + col] = A;
       if (col == 0) {
         part_ml[2 * prow] = M;
         part_ml[2 * prow + 1] = L;
@@ -553,8 +566,8 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   if (!*last_flag) return;
   __threadfence();
-  for (int e = threadIdx.x; e < nrows * D; e += kDecThreads) {
-    const int r = e / D, col = e % D;
+  for (int e = threadIdx.x; e < nrows * DV; e += kDecThreads) {
+    const int r = e / DV, col = e % DV;
     const int64_t prow0 = group * splits * rows + r;
     float M = -INFINITY;
     for (int c = 0; c < live_chunks; ++c) M = fmaxf(M, __ldcg(&part_ml[2 * (prow0 + c * rows)]));
@@ -566,11 +579,11 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (mc == -INFINITY) continue;
         const float wt = exp2f(mc - M);
         L = fmaf(wt, __ldcg(&part_ml[2 * prow + 1]), L);
-        A = fmaf(wt, __ldcg(&part_acc[prow * D + col]), A);
+        A = fmaf(wt, __ldcg(&part_acc[prow * DV + col]), A);
       }
     }
     const int64_t row = (static_cast<int64_t>(b) * Hq + hk * g + r / nq) * Sq + q0 + r % nq;
-    out[row * D + col] = from_f32<T>(L > 0.f ? A / L : 0.f);
+    out[row * DV + col] = from_f32<T>(L > 0.f ? A / L : 0.f);
   }
 }
 
@@ -584,20 +597,21 @@ constexpr int kPreConsumers = 2;                           // consumer warpgroup
 constexpr int kPreThreads = kPreConsumers * 128 + 32;      // and one producer warp
 constexpr int kSwzCols = 64;                               // bf16 of one 128-byte swizzle row
 
-template <int D>
+template <int DK, int DV>
 constexpr int prefill_smem_bytes() {
   // 1024 of alignment slack, the Q tiles, the K and V rings, the barriers
-  return 1024 + kPreConsumers * D * kPreRows * 2 + 2 * kPreStages * D * kPreKeys * 2 +
+  return 1024 + kPreConsumers * DK * kPreRows * 2 + kPreStages * (DK + DV) * kPreKeys * 2 +
          (kPreConsumers + 3 * kPreStages) * 8;
 }
 
 // Grid (B * Hkv, ceil(units / 2)), units = g * ceil(Sq / 64) numbered (query
 // tile, head in group) with the head fastest; block y = 0 takes the last
-// units.  The tensor maps view q as [B*Hq][Sq][D] and k, v as
-// [B*Hkv][Skv][D] in boxes of 64 columns (one 128-byte swizzle row) by 64
-// query rows or kPreKeys keys, so a tile of D columns is D/64 boxes, each
-// a run of 8-row, 1024-byte swizzle atoms.
-template <int D>
+// units.  The tensor maps view q as [B*Hq][Sq][DK], k as [B*Hkv][Skv][DK]
+// and v as [B*Hkv][Skv][DV] in boxes of 64 columns (one 128-byte swizzle
+// row) by 64 query rows or kPreKeys keys, so a tile of D columns is D/64
+// boxes, each a run of 8-row, 1024-byte swizzle atoms; out is
+// [B, Hq, Sq, DV].
+template <int DK, int DV>
 __global__ void __launch_bounds__(kPreThreads, 1)
 flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
                                const __grid_constant__ CUtensorMap kmap,
@@ -605,14 +619,14 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
                                __nv_bfloat16* __restrict__ out,
                                const int32_t* __restrict__ offsets, int offset_scalar, int Hq,
                                int Hkv, int Sq, int Skv, int causal, float scale_log2) {
-  constexpr int kSub = D / kSwzCols;                       // boxes across D
+  constexpr int kSubK = DK / kSwzCols, kSubV = DV / kSwzCols;   // boxes across DK, DV
   constexpr int kQBox = kPreRows * 128, kKVBox = kPreKeys * 128;
-  constexpr int kQBytes = kSub * kQBox, kKVBytes = kSub * kKVBox;
+  constexpr int kQBytes = kSubK * kQBox, kKBytes = kSubK * kKVBox, kVBytes = kSubV * kKVBox;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* qs = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
   unsigned char* ks = qs + kPreConsumers * kQBytes;
-  unsigned char* vs = ks + kPreStages * kKVBytes;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kPreStages * kKVBytes);
+  unsigned char* vs = ks + kPreStages * kKBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kPreStages * kVBytes);
   uint64_t* k_full = q_full + kPreConsumers;
   uint64_t* v_full = k_full + kPreStages;
   uint64_t* empty = v_full + kPreStages;
@@ -646,22 +660,22 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
         const int u = u0 + w;
         mbar_expect_tx(&q_full[w], kQBytes);
 #pragma unroll
-        for (int c = 0; c < kSub; ++c)
+        for (int c = 0; c < kSubK; ++c)
           tma_load_3d(qs + w * kQBytes + c * kQBox, &qmap, c * kSwzCols, (u / g) * kPreRows,
                       b * Hq + hk * g + u % g, &q_full[w]);
       }
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % kPreStages;
         if (t >= kPreStages) mbar_wait(&empty[s], ((t / kPreStages) - 1) & 1);
-        mbar_expect_tx(&k_full[s], kKVBytes);
+        mbar_expect_tx(&k_full[s], kKBytes);
 #pragma unroll
-        for (int c = 0; c < kSub; ++c)
-          tma_load_3d(ks + s * kKVBytes + c * kKVBox, &kmap, c * kSwzCols, t * kPreKeys,
+        for (int c = 0; c < kSubK; ++c)
+          tma_load_3d(ks + s * kKBytes + c * kKVBox, &kmap, c * kSwzCols, t * kPreKeys,
                       b * Hkv + hk, &k_full[s]);
-        mbar_expect_tx(&v_full[s], kKVBytes);
+        mbar_expect_tx(&v_full[s], kVBytes);
 #pragma unroll
-        for (int c = 0; c < kSub; ++c)
-          tma_load_3d(vs + s * kKVBytes + c * kKVBox, &vmap, c * kSwzCols, t * kPreKeys,
+        for (int c = 0; c < kSubV; ++c)
+          tma_load_3d(vs + s * kVBytes + c * kKVBox, &vmap, c * kSwzCols, t * kPreKeys,
                       b * Hkv + hk, &v_full[s]);
       }
     }
@@ -680,9 +694,9 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg_lo = causal ? min(Skv - 1, offset + q0) : Skv - 1;
   const int wg_hi = causal ? min(Skv - 1, offset + q0 + kPreRows - 1) : Skv - 1;
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;   // log2 units; l per thread
   const unsigned char* qt = qs + wg * kQBytes;
   mbar_wait(&q_full[wg], 0);
@@ -691,17 +705,17 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
     const int s = t % kPreStages;
     const uint32_t phase = (t / kPreStages) & 1;
     const int k0 = t * kPreKeys;
-    const unsigned char* kt = ks + s * kKVBytes;
-    const unsigned char* vt = vs + s * kKVBytes;
+    const unsigned char* kt = ks + s * kKBytes;
+    const unsigned char* vt = vs + s * kVBytes;
     if (k0 <= wg_hi) {
-      // S = Q K^T over D in k-steps of 16 (32 bytes inside the swizzle row)
+      // S = Q K^T over DK in k-steps of 16 (32 bytes inside the swizzle row)
       float sc[kPreKeys / 2];
 #pragma unroll
       for (int i = 0; i < kPreKeys / 2; ++i) sc[i] = 0.f;
       mbar_wait(&k_full[s], phase);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         const int sub = kk / 4, in = (kk % 4) * 32;
         wgmma_ss_n128(sc, gmma_desc(qt + sub * kQBox + in, 16, 1024),
                       gmma_desc(kt + sub * kKVBox + in, 16, 1024), kk > 0);
@@ -753,7 +767,7 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
       l0 = a0 * l0 + sum0;
       l1 = a1 * l1 + sum1;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         o[4 * i] *= a0;
         o[4 * i + 1] *= a0;
         o[4 * i + 2] *= a1;
@@ -770,13 +784,13 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       }
 
-      // O += P V: V [keys][D] is the MN-major B; 16 keys = 2 atoms of 8 rows
+      // O += P V: V [keys][DV] is the MN-major B; 16 keys = 2 atoms of 8 rows
       mbar_wait(&v_full[s], phase);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kPreKeys / 16; ++kk) {
         const uint64_t db = gmma_desc(vt + kk * 16 * 128, kKVBox, 1024);
-        if constexpr (D == 128) {
+        if constexpr (DV == 128) {
           wgmma_rs_n128(o, pa[kk], db);
         } else {
           wgmma_rs_n64(o, pa[kk], db);
@@ -798,15 +812,15 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
     l1 += __shfl_xor_sync(0xFFFFFFFFu, l1, x);
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  __nv_bfloat16* oh = out + (static_cast<int64_t>(b) * Hq + h) * Sq * D;
+  __nv_bfloat16* oh = out + (static_cast<int64_t>(b) * Hq + h) * Sq * DV;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
+  for (int i = 0; i < DV / 8; ++i) {
     const int col = 8 * i + 2 * (lane % 4);
     if (r0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<int64_t>(r0) * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<int64_t>(r0) * DV + col) =
           __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
     if (r1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<int64_t>(r1) * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<int64_t>(r1) * DV + col) =
           __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
   }
 }
@@ -864,48 +878,50 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
   return err;
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_prefill(const void* q, const void* k, const void* v, void* out,
                    const int32_t* offsets, int offset_scalar, int B, int Hq, int Hkv, int Sq,
                    int Skv, int causal, float scale_log2, cudaStream_t s) {
   CUtensorMap qm, km, vm;
-  if (!encode_map(&qm, q, D, Sq, static_cast<int64_t>(B) * Hq, kPreRows) ||
-      !encode_map(&km, k, D, Skv, static_cast<int64_t>(B) * Hkv, kPreKeys) ||
-      !encode_map(&vm, v, D, Skv, static_cast<int64_t>(B) * Hkv, kPreKeys))
+  if (!encode_map(&qm, q, DK, Sq, static_cast<int64_t>(B) * Hq, kPreRows) ||
+      !encode_map(&km, k, DK, Skv, static_cast<int64_t>(B) * Hkv, kPreKeys) ||
+      !encode_map(&vm, v, DV, Skv, static_cast<int64_t>(B) * Hkv, kPreKeys))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = prefill_smem_bytes<D>();
+  constexpr int smem = prefill_smem_bytes<DK, DV>();
+  static_assert(smem <= 232448, "prefill tiles exceed a block's shared memory");
   static bool smem_allowed = false;
-  const cudaError_t err = allow_smem(flash_attention_prefill_kernel<D>, smem, smem_allowed);
+  const cudaError_t err = allow_smem(flash_attention_prefill_kernel<DK, DV>, smem, smem_allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t units = static_cast<int64_t>(Hq / Hkv) * ((Sq + kPreRows - 1) / kPreRows);
   const int64_t blocks = (units + kPreConsumers - 1) / kPreConsumers;
   if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B * Hkv, static_cast<unsigned>(blocks));
-  flash_attention_prefill_kernel<D><<<grid, kPreThreads, smem, s>>>(
+  flash_attention_prefill_kernel<DK, DV><<<grid, kPreThreads, smem, s>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), offsets, offset_scalar, Hq, Hkv, Sq, Skv,
       causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int R>
+template <typename T, int DK, int DV, int R>
 int launch_decode(const void* q, const void* k, const void* v, void* out, float* part_acc,
                   float* part_ml, int* counters, const int32_t* offsets, int offset_scalar,
                   int B, int Hq, int Hkv, int Sq, int Skv, int bq, int splits, int chunk,
                   int causal, float scale_log2, cudaStream_t s) {
-  constexpr int smem = decode_smem_bytes<T, D, R>();
+  constexpr int smem = decode_smem_bytes<T, DK, DV, R>();
   static bool smem_allowed = false;
-  const cudaError_t err = allow_smem(flash_attention_decode_kernel<T, D, R>, smem, smem_allowed);
+  const cudaError_t err =
+      allow_smem(flash_attention_decode_kernel<T, DK, DV, R>, smem, smem_allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(((Sq + bq - 1) / bq) * splits, Hkv, B);
-  flash_attention_decode_kernel<T, D, R><<<grid, kDecThreads, smem, s>>>(
+  flash_attention_decode_kernel<T, DK, DV, R><<<grid, kDecThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), part_acc, part_ml, counters, offsets, offset_scalar, Hq, Hkv, Sq,
       Skv, bq, splits, chunk, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instance for head dim D and row bucket R (the power of two >= g * bq)
-template <typename T, int D>
+// the instance for head dims (DK, DV) and row bucket R (the power of two >= g * bq)
+template <typename T, int DK, int DV>
 int launch_decode_r(const void* q, const void* k, const void* v, void* out, float* part_acc,
                     float* part_ml, int* counters, const int32_t* offsets, int offset_scalar,
                     int B, int Hq, int Hkv, int Sq, int Skv, int bq, int splits, int chunk,
@@ -914,23 +930,27 @@ int launch_decode_r(const void* q, const void* k, const void* v, void* out, floa
 #define DECODE_ARGS                                                                         \
   q, k, v, out, part_acc, part_ml, counters, offsets, offset_scalar, B, Hq, Hkv, Sq, Skv, bq, \
       splits, chunk, causal, scale_log2, s
-  if (rows <= 1) return launch_decode<T, D, 1>(DECODE_ARGS);
-  if (rows <= 2) return launch_decode<T, D, 2>(DECODE_ARGS);
-  if (rows <= 4) return launch_decode<T, D, 4>(DECODE_ARGS);
-  if (rows <= 8) return launch_decode<T, D, 8>(DECODE_ARGS);
-  return launch_decode<T, D, 16>(DECODE_ARGS);
+  if (rows > dec_max_rows(DK)) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 1) return launch_decode<T, DK, DV, 1>(DECODE_ARGS);
+  if (rows <= 2) return launch_decode<T, DK, DV, 2>(DECODE_ARGS);
+  if (rows <= 4) return launch_decode<T, DK, DV, 4>(DECODE_ARGS);
+  if (rows <= 8) return launch_decode<T, DK, DV, 8>(DECODE_ARGS);
+  if constexpr (dec_max_rows(DK) >= 16) return launch_decode<T, DK, DV, 16>(DECODE_ARGS);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int launch_decode_d(const void* q, const void* k, const void* v, void* out, float* part_acc,
                     float* part_ml, int* counters, const int32_t* offsets, int offset_scalar,
-                    int B, int Hq, int Hkv, int Sq, int Skv, int D, int bq, int splits,
+                    int B, int Hq, int Hkv, int Sq, int Skv, int D, int Dv, int bq, int splits,
                     int chunk, int causal, float scale_log2, cudaStream_t s) {
+  if (D == 192 && Dv == 128) return launch_decode_r<T, 192, 128>(DECODE_ARGS);
+  if (D != Dv) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 16: return launch_decode_r<T, 16>(DECODE_ARGS);
-    case 32: return launch_decode_r<T, 32>(DECODE_ARGS);
-    case 64: return launch_decode_r<T, 64>(DECODE_ARGS);
-    case 128: return launch_decode_r<T, 128>(DECODE_ARGS);
+    case 16: return launch_decode_r<T, 16, 16>(DECODE_ARGS);
+    case 32: return launch_decode_r<T, 32, 32>(DECODE_ARGS);
+    case 64: return launch_decode_r<T, 64, 64>(DECODE_ARGS);
+    case 128: return launch_decode_r<T, 128, 128>(DECODE_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef DECODE_ARGS
@@ -942,18 +962,20 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16.  offsets: device int32 [B], or null to use
 // offset_scalar for every sequence.
-// prefill = 1 (bf16, Sq >= 16, D in {64, 128}, Skv >= 1): the wgmma kernel;
-// bq, splits, chunk and the scratch are ignored.
+// D is the width of q and k, Dv that of v and out: D = Dv in {16, 32, 64,
+// 128}, or (192, 128).
+// prefill = 1 (bf16, Sq >= 16, (D, Dv) in {(64, 64), (128, 128), (192, 128)},
+// Skv >= 1): the wgmma kernel; bq, splits, chunk and the scratch are ignored.
 // prefill = 0: the decode kernel with bq queries per block ((Hq / Hkv) * bq
-// <= 16) and the keys in `splits` chunks of `chunk` keys (a multiple of 32,
-// splits * chunk >= Skv); with splits > 1, f32 scratch part_acc [groups,
-// splits, g*bq, D] and part_ml [groups, splits, g*bq, 2] and int32
-// counters [groups], all 0 (groups = B * Hkv * ceil(Sq / bq)).
+// <= 16, or 8 at D 192) and the keys in `splits` chunks of `chunk` keys (a
+// multiple of 32, splits * chunk >= Skv); with splits > 1, f32 scratch
+// part_acc [groups, splits, g*bq, Dv] and part_ml [groups, splits, g*bq, 2]
+// and int32 counters [groups], all 0 (groups = B * Hkv * ceil(Sq / bq)).
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            void* part_acc, void* part_ml, void* counters, const void* offsets,
                            int offset_scalar, int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                           int bq, int splits, int chunk, int dtype, int prefill, int causal,
-                           float scale, void* stream) {
+                           int Dv, int bq, int splits, int chunk, int dtype, int prefill,
+                           int causal, float scale, void* stream) {
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Skv < 0 || Hkv > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int32_t* off = static_cast<const int32_t*>(offsets);
@@ -962,12 +984,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   if (prefill) {
     if (dtype != 1 || Sq < 16 || Skv < 1 || static_cast<int64_t>(B) * Hkv > 0x7FFFFFFF)
       return static_cast<int>(cudaErrorInvalidValue);
-    if (D == 128)
-      return launch_prefill<128>(q, k, v, out, off, offset_scalar, B, Hq, Hkv, Sq, Skv, causal,
-                                 scale_log2, s);
-    if (D == 64)
-      return launch_prefill<64>(q, k, v, out, off, offset_scalar, B, Hq, Hkv, Sq, Skv, causal,
-                                scale_log2, s);
+    if (D == 128 && Dv == 128)
+      return launch_prefill<128, 128>(q, k, v, out, off, offset_scalar, B, Hq, Hkv, Sq, Skv,
+                                      causal, scale_log2, s);
+    if (D == 64 && Dv == 64)
+      return launch_prefill<64, 64>(q, k, v, out, off, offset_scalar, B, Hq, Hkv, Sq, Skv,
+                                    causal, scale_log2, s);
+    if (D == 192 && Dv == 128)
+      return launch_prefill<192, 128>(q, k, v, out, off, offset_scalar, B, Hq, Hkv, Sq, Skv,
+                                      causal, scale_log2, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bq < 1 || (Hq / Hkv) * bq > kDecRows || splits < 1 || chunk < kDecKeys ||
@@ -980,11 +1005,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   int* cnt = static_cast<int*>(counters);
   if (dtype == 0)
     return launch_decode_d<float>(q, k, v, out, pa, pm, cnt, off, offset_scalar, B, Hq, Hkv, Sq,
-                                  Skv, D, bq, splits, chunk, causal, scale_log2, s);
+                                  Skv, D, Dv, bq, splits, chunk, causal, scale_log2, s);
   if (dtype == 1)
     return launch_decode_d<__nv_bfloat16>(q, k, v, out, pa, pm, cnt, off, offset_scalar, B, Hq,
-                                          Hkv, Sq, Skv, D, bq, splits, chunk, causal, scale_log2,
-                                          s);
+                                          Hkv, Sq, Skv, D, Dv, bq, splits, chunk, causal,
+                                          scale_log2, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

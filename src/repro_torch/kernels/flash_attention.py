@@ -2,25 +2,27 @@
 
 Replaces `repro/kernels/flash_attention.py::flash_attention_pallas` and
 computes the function of `repro/models/layers.py::_chunked_attention`, the
-attention the serving path runs: q [B, Hq, Sq, D] against k, v
-[B, Hkv, Skv, D], query head h reading kv head h // (Hq / Hkv), softmax in
-f32, output in q's dtype.  Query i sits at absolute position offset + i and,
-when causal, sees the keys j <= offset + i.  `offset` is an int, a 0-d
-tensor or an int32 [B] tensor (one per sequence: the serve engine's slot
-lengths); its default Skv - Sq is the Pallas kernel's own (queries are the
-last Sq positions).  The keys past the valid prefix of a cache buffer are
-masked by the same inequality, so k and v may be a layer's whole
-[B, Hkv, max_len, D] cache.  A row with every key masked gives 0, as the
-Pallas kernel does.
+attention the serving path runs: q [B, Hq, Sq, D] and k [B, Hkv, Skv, D]
+against v [B, Hkv, Skv, Dv], query head h reading kv head h // (Hq / Hkv),
+softmax in f32, output [B, Hq, Sq, Dv] in q's dtype.  Dv is D but for MLA,
+whose queries and keys carry a rope part that the values lack.  Query i
+sits at absolute position offset + i and, when causal, sees the keys
+j <= offset + i.  `offset` is an int, a 0-d tensor or an int32 [B] tensor
+(one per sequence: the serve engine's slot lengths); its default Skv - Sq
+is the Pallas kernel's own (queries are the last Sq positions).  The keys
+past the valid prefix of a cache buffer are masked by the same inequality,
+so k and v may be a layer's whole [B, Hkv, max_len, D] cache.  A row with
+every key masked gives 0, as the Pallas kernel does.
 
-The kernels (`csrc/attention_kernels.cu`) take f32 or bf16 with D in
-{16, 32, 64, 128}; their designs and bounds are noted in the source.  bf16
-with at least 16 queries and D in {64, 128} (prefill) runs the wgmma + TMA
-kernel; everything else (decode, f32, bf16 with D < 64) runs the split-KV
-decode kernel, which takes any Sq.  That is a dispatch by shape (`plan`),
-not a fallback.  The decode kernel's key chunks and scratch come from
-`plan` too; its chunk merge happens inside the same launch.  Each call
-counts as one launch of `flash_attention`.
+The kernels (`csrc/attention_kernels.cu`) take f32 or bf16 with (D, Dv) in
+HEAD_DIMS: D = Dv in {16, 32, 64, 128}, and MLA's (192, 128).  bf16 with at
+least 16 queries and (D, Dv) in PREFILL_HEAD_DIMS, the pairs with D >= 64
+(prefill), runs the wgmma + TMA kernel; everything else (decode, f32, bf16
+with D < 64) runs the split-KV decode kernel, which takes any Sq.  That is
+a dispatch by shape (`plan`), not a fallback.  The decode kernel's query
+tiles, key chunks and scratch come from `plan` too (a 192-wide q row takes
+at most 8 rows a block); its chunk merge happens inside the same launch.
+Each call counts as one launch of `flash_attention`.
 """
 
 from __future__ import annotations
@@ -31,12 +33,12 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))   # (D, Dv) of the kernels
 KERNEL_ROWS = 16                   # (query head, query) rows of one decode block
 DECODE_TILE_KEYS = 32              # keys of one decode tile (kDecKeys in the source)
 DECODE_BLOCKS_PER_SM = 4           # decode blocks per SM if every cache were full
 PREFILL_MIN_QUERIES = 16           # bf16 with this many queries takes the prefill kernel
-PREFILL_HEAD_DIMS = (64, 128)      # head dims of the prefill kernel's swizzled tiles
+PREFILL_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # the prefill kernel's (D, Dv)
 PLAIN_Q_CHUNK = 1024               # queries per chunk of the plain version (its memory bound)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Limits of `row_error` for the kernel against its plain version.  f32: the
@@ -47,13 +49,14 @@ TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 
 
 def _shapes(q, k, v):
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention takes q [B,Hq,Sq,D], k = v [B,Hkv,Skv,D]; got "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention takes q [B,Hq,Sq,D], k [B,Hkv,Skv,D], v [B,Hkv,Skv,Dv] "
+                         f"(k = v but for the head width); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Hq, Sq, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or k.shape[1] < 1 or Hq % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not pair for GQA")
-    return B, Hq, k.shape[1], Sq, k.shape[2], D
+    return B, Hq, k.shape[1], Sq, k.shape[2], D, v.shape[3]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,6 +65,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per query chunk, full-row softmax in f32, the weights cast to v's dtype
     before the product with v (accumulated in f32)."""
     B, Hq, Sq, Hkv, Skv, D = *q.shape[:3], k.shape[1], k.shape[2], q.shape[3]
+    Dv = v.shape[3]
     g = Hq // Hkv
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     if offset is None:
@@ -88,7 +92,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             w = torch.softmax(logits, dim=-1)
         w = w.to(v.dtype).float()
         chunks.append(torch.einsum("bhgqk,bhkd->bhgqd", w, vf).to(q.dtype))
-    return torch.cat(chunks, dim=3).reshape(B, Hq, Sq, D)
+    return torch.cat(chunks, dim=3).reshape(B, Hq, Sq, Dv)
 
 
 def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -114,25 +118,33 @@ class Plan(NamedTuple):
 
     @property
     def scratch_rows(self) -> int:
-        """Rows of the decode scratch: part_acc [rows, D] and part_ml [rows, 2]
+        """Rows of the decode scratch: part_acc [rows, Dv] and part_ml [rows, 2]
         in f32 (0 when no chunk merge is needed)."""
         return self.groups * self.splits * self.rows if self.splits > 1 else 0
 
 
-def plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
+def kernel_rows(D: int) -> int:
+    """The most (query head, query) rows of one decode block for q/k width D
+    (`dec_max_rows` in the source): the per-row registers of <f32, 128, 16>
+    already fill 254 of 255, so MLA's 192-wide rows stop at 8."""
+    return 8 if D == 192 else KERNEL_ROWS
+
+
+def plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int, Dv: int,
          sms: int) -> Plan:
-    """The kernel and decode layout of a call.  Prefill: bf16, at least
-    PREFILL_MIN_QUERIES queries, D in PREFILL_HEAD_DIMS, some key.  Decode:
-    the rest, with the keys split so that about DECODE_BLOCKS_PER_SM blocks
-    per SM would exist if every cache were full (blocks past a slot's
-    frontier exit at once, so a half-full wave keeps about 2 per SM); the
-    host never reads the offsets."""
+    """The kernel and decode layout of a call.  Prefill: bf16,
+    at least PREFILL_MIN_QUERIES queries, (D, Dv) in PREFILL_HEAD_DIMS, some
+    key.  Decode: the rest, at most kernel_rows(D) rows a block, with the
+    keys split so that about DECODE_BLOCKS_PER_SM blocks per SM would exist
+    if every cache were full (blocks past a slot's frontier exit at once, so
+    a half-full wave keeps about 2 per SM); the host never reads the
+    offsets."""
     g = Hq // Hkv
-    bq = max(1, min(KERNEL_ROWS // g, Sq))
+    bq = max(1, min(kernel_rows(D) // g, Sq))
     qtiles = -(-Sq // bq)
     groups = B * Hkv * qtiles
-    if dtype == torch.bfloat16 and Sq >= PREFILL_MIN_QUERIES and D in PREFILL_HEAD_DIMS \
-            and Skv > 0:
+    if dtype == torch.bfloat16 and Sq >= PREFILL_MIN_QUERIES \
+            and (D, Dv) in PREFILL_HEAD_DIMS and Skv > 0:
         return Plan("prefill", bq, 1, 0, groups, g * bq)
     tiles = max(1, -(-Skv // DECODE_TILE_KEYS))
     splits = min(tiles, max(1, -(-DECODE_BLOCKS_PER_SM * sms // groups)))
@@ -143,9 +155,9 @@ def plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: in
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale=None, offset=None) -> torch.Tensor:
-    """GQA attention [B, Hq, Sq, D]: the plain version for CPU tensors, the
+    """GQA attention [B, Hq, Sq, Dv]: the plain version for CPU tensors, the
     kernel for CUDA tensors (it raises on what the kernel does not take)."""
-    B, Hq, Hkv, Sq, Skv, D = _shapes(q, k, v)
+    B, Hq, Hkv, Sq, Skv, D, Dv = _shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale, offset=offset)
     if q.device.type != "cuda":
@@ -155,18 +167,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes f32 or bf16 alike, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dim in {HEAD_DIMS}, got {D}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims (D, Dv) in {HEAD_DIMS}, "
+                         f"got {(D, Dv)}")
     g = Hq // Hkv
-    if g > KERNEL_ROWS:
-        raise ValueError(f"flash_attention kernel takes at most {KERNEL_ROWS} query heads "
-                         f"per kv head, got {g}")
+    if g > kernel_rows(D):
+        raise ValueError(f"flash_attention kernel takes at most {kernel_rows(D)} query heads "
+                         f"per kv head at D {D}, got {g}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel takes contiguous 16-byte aligned "
                              f"tensors; {name} is not")
     if Sq == 0:
-        return torch.empty_like(q)
+        return q.new_empty((B, Hq, 0, Dv))
     offsets, offset_scalar = None, Skv - Sq
     if isinstance(offset, torch.Tensor):
         if offset.dtype != torch.int32 or offset.device != q.device or offset.dim() > 1 \
@@ -178,22 +191,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         offset_scalar = int(offset)
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    p = plan(q.dtype, B, Hq, Hkv, Sq, Skv, D, sms)
+    p = plan(q.dtype, B, Hq, Hkv, Sq, Skv, D, Dv, sms)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part_acc = part_ml = counters = None
     n_acc = p.scratch_rows
     if n_acc:
-        part_acc = torch.empty((n_acc, D), dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((n_acc, Dv), dtype=torch.float32, device=q.device)
         part_ml = torch.empty((n_acc, 2), dtype=torch.float32, device=q.device)
         counters = build.counters(q.device, stream, p.groups)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Hq, Sq, Dv))
     with torch.cuda.device(q.device):
         err = build.library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             part_acc.data_ptr() if n_acc else None, part_ml.data_ptr() if n_acc else None,
             counters.data_ptr() if n_acc else None,
             offsets.data_ptr() if offsets is not None else None, offset_scalar,
-            B, Hq, Hkv, Sq, Skv, D, p.bq, p.splits, p.chunk, _DTYPES[q.dtype],
+            B, Hq, Hkv, Sq, Skv, D, Dv, p.bq, p.splits, p.chunk, _DTYPES[q.dtype],
             int(p.kernel == "prefill"), int(causal), float(scale), stream)
     build.check(err, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1

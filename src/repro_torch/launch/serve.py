@@ -3,7 +3,9 @@ engine over a freshly initialised LM, fed a stream of random requests.
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--device cpu]
 
-Takes the reference's arguments plus `--device` (default `cuda`).
+Takes the reference's arguments plus `--device` (default `cuda`); `--arch`
+names a dense or moe architecture (its smoke configuration is served), e.g.
+`--arch deepseek-v2-lite-16b --device cpu`.
 """
 
 from __future__ import annotations

@@ -1,16 +1,18 @@
-"""Shared layers of the dense LM (twin of `repro/models/layers.py`).
+"""Shared layers of the LM (twin of `repro/models/layers.py`): RMSNorm, RoPE,
+SwiGLU MLP, GQA attention (+bias), MLA.
 
 Activations [B, S, d]; attention tensors [B, H, S, hd]; weights in the
 reference's [in, out] layout, applied as `x @ w`.  The attention of every
 call goes through `kernels/flash_attention.py`: the hand-written kernel for
 CUDA tensors, its plain version (the reference's `_chunked_attention`) for
-CPU tensors.  MLA (`mla_attention`) is not ported yet.
+CPU tensors.
 
-A KV cache is {"k", "v": [B, Hkv, max_len, hd], "length": int32 0-d or [B]}.
-`attention` writes the new K/V into the cache's buffers in place (the
-reference returns updated copies; in place saves copying a layer's cache
-every step) and returns {"k", "v", "length": length + S} over the same
-buffers.
+A GQA layer's cache is {"k", "v": [B, Hkv, max_len, hd], "length": int32
+0-d or [B]}; an MLA layer's {"c_kv": [B, max_len, kv_lora_rank], "k_rope":
+[B, 1, max_len, qk_rope_dim], "length"}.  Both attentions write the new
+entries into the cache's buffers in place (the reference returns updated
+copies; in place saves copying a layer's cache every step) and return the
+same buffers with "length": length + S.
 """
 
 from __future__ import annotations
@@ -102,6 +104,54 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, kv_cache=None
     else:
         out = flash_attention(q, k.contiguous(), v.contiguous(), causal=causal)
     out = out.transpose(1, 2).reshape(B, S, Hq * hd)
+    return out @ p["wo"], new_cache
+
+
+def init_mla(f, cfg):
+    d, H, R = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq": f.param((d, H * qk)),
+        "w_dkv": f.param((d, R)),
+        "w_kr": f.param((d, cfg.qk_rope_dim)),
+        "kv_norm": f.param((R,), "ones"),
+        "w_uk": f.param((R, H * cfg.qk_nope_dim)),
+        "w_uv": f.param((R, H * cfg.v_head_dim)),
+        "wo": f.param((H * cfg.v_head_dim, d)),
+    }
+
+
+def mla_attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, kv_cache=None):
+    """MLA: K/V compressed to c_kv [B, S, kv_lora_rank] and one rope key
+    [B, 1, S, qk_rope_dim] shared by the heads; the cache keeps only those.
+    Decompressed per call over the whole buffer, as the reference does (no
+    absorbed-matmul variant): k = [c_kv w_uk, k_rope] is qk_nope + qk_rope
+    wide, v = c_kv w_uv is v_head_dim wide, so the attention's q/k and v
+    widths differ ((192, 128) for deepseek-v2).  Returns (out [B, S, d],
+    updated cache or None)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rope_d, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, nope + rope_d).transpose(1, 2)
+    q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)], dim=-1)
+    c_kv = rmsnorm({"scale": p["kv_norm"]}, x @ p["w_dkv"], cfg.norm_eps)      # [B, S, R]
+    k_rope = apply_rope((x @ p["w_kr"])[:, None], positions, cfg.rope_theta)   # [B, 1, S, rope]
+
+    new_cache, offset = None, None
+    if kv_cache is not None:
+        length = kv_cache["length"]
+        _write_cache(kv_cache["c_kv"][:, None], c_kv[:, None], length)
+        _write_cache(kv_cache["k_rope"], k_rope, length)
+        c_kv, k_rope = kv_cache["c_kv"], kv_cache["k_rope"]
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope, "length": length + S}
+        offset = length            # attend over the whole buffer, the unwritten tail masked
+
+    Sk = c_kv.shape[1]
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, Sk, H, nope).transpose(1, 2)
+    v = (c_kv @ p["w_uv"]).reshape(B, Sk, H, vh).transpose(1, 2).contiguous()
+    k = torch.cat([k_nope, k_rope.expand(B, H, Sk, rope_d)], dim=-1)
+    out = flash_attention(q, k, v, causal=True, offset=offset)
+    out = out.transpose(1, 2).reshape(B, S, H * vh)
     return out @ p["wo"], new_cache
 
 

@@ -1,6 +1,6 @@
 """Family -> model implementation dispatch (twin of `repro/models/registry.py`).
 
-The port serves the dense family; the other families raise
+The port serves the dense and moe families; the other families raise
 `NotImplementedError` naming the ROADMAP item that ports them.
 """
 
@@ -23,12 +23,10 @@ class ModelApi(NamedTuple):
     decode_step: Callable
 
 
-_FAMILIES: Dict[str, ModelApi] = {
-    "dense": ModelApi(transformer.init_params, transformer.forward,
-                      transformer.init_cache, transformer.prefill, transformer.decode_step),
-}
+_LM = ModelApi(transformer.init_params, transformer.forward, transformer.init_cache,
+               transformer.prefill, transformer.decode_step)
+_FAMILIES: Dict[str, ModelApi] = {"dense": _LM, "moe": _LM}
 _NOT_PORTED = {
-    "moe": "queue 1 item 11b (MoE and MLA)",
     "ssm": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
     "hybrid": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
     "encdec": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",

@@ -1,15 +1,23 @@
-"""Decoder-only dense LM (twin of the dense family of `repro/models/transformer.py`).
+"""Decoder-only LM: dense GQA, MoE (qwen3), MLA + MoE (deepseek) (twin of
+`repro/models/transformer.py`).
 
 The reference stacks its layers along a leading dim and runs them with
-`lax.scan`; the port keeps one parameter dict per layer in
-`params["blocks"]` and runs them in a Python loop.  The decode cache keeps
-the stacked layout, {"k", "v": [L, B, Hkv, max_len, hd], "length"}, with one
-`length` for all layers (the reference's [L] copies are always equal): a
-0-d int32 from `init_cache`, or [B] per-slot lengths in the serve engine.
-Prefill and decode write the cache's buffers in place (see `layers.py`).
+`lax.scan`, keeping deepseek's `first_k_dense` prefix (dense MLP layers
+before the MoE ones) apart in `params["prefix"]`.  The port keeps one
+parameter dict per layer in `params["blocks"]`, the prefix layers first
+(`models/convert.py` carries the reference's `prefix/<i>` and stacked
+`blocks` leaves there), and runs them in a Python loop.  The decode cache
+stacks all L layers, prefix included, with one `length` for all (the
+reference's copies are always equal): GQA {"k", "v": [L, B, Hkv, max_len,
+hd]}, MLA {"c_kv": [L, B, max_len, kv_lora_rank], "k_rope": [L, B, 1,
+max_len, qk_rope_dim]}, "length" a 0-d int32 from `init_cache` or [B]
+per-slot lengths in the serve engine.  Prefill and decode write the cache's
+buffers in place (see `layers.py`).
 
-MoE (`num_experts > 0`, `first_k_dense`) and MLA (`kv_lora_rank`) are not
-ported yet and raise.
+The MoE aux outputs (lb_loss, z_loss, dropped) are summed over the layers in
+f32, as the reference's `_accumulate` does; `forward` returns them, and
+prefill and decode drop them, as the reference's do.  The ssm, hybrid,
+encdec and vlm families are not ported and raise.
 """
 
 from __future__ import annotations
@@ -19,17 +27,26 @@ from typing import Any, Dict
 import torch
 
 from ..device import resolve_device
-from .layers import attention, decode_positions, embed, mlp, rmsnorm, unembed
+from .layers import (attention, decode_positions, embed, init_mla, mla_attention, mlp, rmsnorm,
+                     unembed)
+from .moe import init_moe, moe_ffn
 from .nn import ParamFactory
 
+AUX_KEYS = ("lb_loss", "z_loss", "dropped")
 
-def check_dense(cfg) -> None:
-    if cfg.num_experts or cfg.first_k_dense or cfg.kv_lora_rank:
+
+def check_ported(cfg) -> None:
+    if cfg.ssm_state or cfg.shared_attn_every or cfg.encoder_layers or cfg.num_image_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA are not ported yet (ROADMAP.md queue 1 item 11b)")
+            f"{cfg.name}: ssm, hybrid, encdec and vlm are not ported yet "
+            f"(ROADMAP.md queue 1 item 11c)")
 
 
-def _init_block(f: ParamFactory, cfg) -> Dict[str, Any]:
+def _is_moe_layer(cfg, layer: int) -> bool:
+    return cfg.num_experts > 0 and layer >= cfg.first_k_dense
+
+
+def _init_attention(f: ParamFactory, cfg) -> Dict[str, Any]:
     d, hd, Hq, Hkv = cfg.d_model, cfg.hd, cfg.num_heads, cfg.num_kv_heads
     attn = {
         "wq": f.param((d, Hq * hd)),
@@ -40,31 +57,59 @@ def _init_block(f: ParamFactory, cfg) -> Dict[str, Any]:
     if cfg.qkv_bias:
         attn.update(bq=f.param((Hq * hd,), "zeros"), bk=f.param((Hkv * hd,), "zeros"),
                     bv=f.param((Hkv * hd,), "zeros"))
+    return attn
+
+
+def _init_block(f: ParamFactory, cfg, moe: bool) -> Dict[str, Any]:
+    d = cfg.d_model
     return {
         "ln1": {"scale": f.param((d,), "ones")},
         "ln2": {"scale": f.param((d,), "ones")},
-        "attn": attn,
-        "ffn": {"w_gate": f.param((d, cfg.d_ff)), "w_up": f.param((d, cfg.d_ff)),
-                "w_down": f.param((cfg.d_ff, d))},
+        "attn": init_mla(f, cfg) if cfg.kv_lora_rank else _init_attention(f, cfg),
+        "ffn": init_moe(f, cfg) if moe else {
+            "w_gate": f.param((d, cfg.d_ff)), "w_up": f.param((d, cfg.d_ff)),
+            "w_down": f.param((cfg.d_ff, d))},
     }
 
 
 def init_params(cfg, f: ParamFactory) -> Dict[str, Any]:
-    check_dense(cfg)
+    check_ported(cfg)
     return {
         "embed": {"tokens": f.param((cfg.vocab_padded, cfg.d_model), "embed", scale=0.02)},
-        "blocks": [_init_block(f, cfg) for _ in range(cfg.num_layers)],
+        "blocks": [_init_block(f, cfg, _is_moe_layer(cfg, l)) for l in range(cfg.num_layers)],
         "ln_f": {"scale": f.param((cfg.d_model,), "ones")},
         "unembed": {"w": f.param((cfg.d_model, cfg.vocab_padded))},
     }
 
 
-def _block(p, cfg, x, positions, cache=None):
+def _block(p, cfg, x, positions, cache, moe: bool):
+    """One layer: (x, updated cache or None, MoE aux or None)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, new_cache = attention(p["attn"], cfg, h, positions, kv_cache=cache)
+    if cfg.kv_lora_rank:
+        a, new_cache = mla_attention(p["attn"], cfg, h, positions, kv_cache=cache)
+    else:
+        a, new_cache = attention(p["attn"], cfg, h, positions, kv_cache=cache)
     x = x + a
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], h), new_cache
+    if moe:
+        f, aux = moe_ffn(p["ffn"], cfg, h)
+    else:
+        f, aux = mlp(p["ffn"], h), None
+    return x + f, new_cache, aux
+
+
+def _layers(cfg, params, x, positions, cache=None):
+    """Every layer in turn; returns (x, aux summed over the MoE layers)."""
+    total = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
+    for l, p_l in enumerate(params["blocks"]):
+        layer = None
+        if cache is not None:
+            layer = {name: buf[l] for name, buf in cache.items() if name != "length"}
+            layer["length"] = cache["length"]
+        x, _, aux = _block(p_l, cfg, x, positions, layer, _is_moe_layer(cfg, l))
+        if aux is not None:
+            total = {k: total[k] + aux[k] for k in AUX_KEYS}
+    return x, total
 
 
 def _logits(cfg, params, x):
@@ -72,38 +117,39 @@ def _logits(cfg, params, x):
     return unembed(params["unembed"], x, fp32=cfg.logits_fp32, valid_vocab=cfg.vocab_size)
 
 
-def forward(cfg, params, batch) -> torch.Tensor:
-    """Forward without a cache: tokens [B, S] -> logits [B, S, V].  (The
-    reference also returns the MoE aux losses, always zero for dense.)"""
-    check_dense(cfg)
+def forward(cfg, params, batch):
+    """Forward without a cache: tokens [B, S] -> (logits [B, S, V], aux)."""
+    check_ported(cfg)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens).to(cfg.torch_dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for p_l in params["blocks"]:
-        x, _ = _block(p_l, cfg, x, positions)
-    return _logits(cfg, params, x)
+    x, aux = _layers(cfg, params, x, positions)
+    return _logits(cfg, params, x), aux
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, torch.Tensor]:
-    """Decode cache: k/v [L, B, Hkv, max_len, hd] zeros, length 0 (0-d int32)."""
-    check_dense(cfg)
+    """Decode cache of all L layers, zeros, length 0 (0-d int32)."""
+    check_ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "length": torch.zeros((), dtype=torch.int32, device=dev)}
+    L = cfg.num_layers
+    if cfg.kv_lora_rank:
+        shapes = {"c_kv": (L, batch, max_len, cfg.kv_lora_rank),
+                  "k_rope": (L, batch, 1, max_len, cfg.qk_rope_dim)}
+    else:
+        shapes = dict.fromkeys(("k", "v"), (L, batch, cfg.num_kv_heads, max_len, cfg.hd))
+    cache = {name: torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+             for name, shape in shapes.items()}
+    cache["length"] = torch.zeros((), dtype=torch.int32, device=dev)
+    return cache
 
 
 def _run_with_cache(cfg, params, tokens, cache, positions, last_only: bool):
-    check_dense(cfg)
+    check_ported(cfg)
     x = embed(params["embed"], tokens).to(cfg.torch_dtype)
-    length = cache["length"]
-    for l, p_l in enumerate(params["blocks"]):
-        layer = {"k": cache["k"][l], "v": cache["v"][l], "length": length}
-        x, _ = _block(p_l, cfg, x, positions, layer)
+    x, _ = _layers(cfg, params, x, positions, cache)
     if last_only:
         x = x[:, -1:]  # unembed only the sampled position
-    new_cache = {"k": cache["k"], "v": cache["v"], "length": length + tokens.shape[1]}
+    new_cache = dict(cache, length=cache["length"] + tokens.shape[1])
     return _logits(cfg, params, x), new_cache
 
 

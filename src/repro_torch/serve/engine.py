@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine (twin of `repro/serve/engine.py`, dense family).
+"""Continuous-batching serving engine (twin of `repro/serve/engine.py`, dense and moe families).
 
 Iteration-level scheduling on a fixed slot grid, as in the reference:
 
@@ -111,11 +111,11 @@ class Engine:
         prompt = list(req.prompt)
         n_pre = len(prompt) - 1            # last prompt token goes through decode
         rows = slice(slot_idx, slot_idx + 1)
-        one = {"k": self.cache["k"][:, rows], "v": self.cache["v"][:, rows],
-               "length": self.cache["length"][rows]}
-        one["k"].zero_()
-        one["v"].zero_()
-        one["length"].zero_()
+        # every leaf's slot rows (batch axis 1 of [L, B, ...]; 0 of length [B])
+        one = {name: buf[rows] if name == "length" else buf[:, rows]
+               for name, buf in self.cache.items()}
+        for buf in one.values():
+            buf.zero_()
         if n_pre > 0:
             plen = self._prefill_len(n_pre)
             toks = np.zeros((1, plen), np.int32)

@@ -12,7 +12,8 @@ inputs both sides draw with numpy from the same seeds:
   * `repro.models.layers._chunked_attention`, the attention the serving path
     runs, with scalar and per-sequence [B] offsets (an idle slot's offset past
     the buffer included), GQA groups 1 and 2, D 16 and 128, ragged Sq/Skv,
-    several query chunks: f32 2e-6, bf16 2e-2.
+    several query chunks: f32 2e-6, bf16 2e-2; and MLA's shapes, where v is
+    narrower than q and k (the smoke's (24, 16), deepseek-v2's (192, 128)).
 
 The CUDA kernel is held against this plain version on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
@@ -40,6 +41,14 @@ CHUNKED = {
     "non_causal_ragged": (1, 4, 2, 7, 19, 16, None, False, "float32", 1024),
     "decode_bf16": (2, 16, 8, 1, 300, 128, [10, 250], True, "bfloat16", 1024),
 }
+# MLA: v of its own width Dv.  name: B, Hq, Hkv, Sq, Skv, D, Dv, offset, causal, dtype, q_chunk
+CHUNKED_MLA = {
+    "mla_smoke_prefill": (2, 4, 4, 12, 32, 24, 16, 0, True, "float32", 1024),
+    "mla_decode_per_slot": (3, 4, 4, 1, 64, 192, 128, [0, 30, 70], True, "float32", 1024),
+    "mla_prefill_scalar": (1, 4, 4, 37, 100, 192, 128, 20, True, "float32", 1024),
+    "mla_query_chunks": (1, 2, 2, 512, 512, 192, 128, None, True, "float32", 128),
+    "mla_bf16": (2, 16, 16, 5, 300, 192, 128, [10, 250], True, "bfloat16", 1024),
+}
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
 
@@ -55,6 +64,13 @@ def _chunked_inputs(name):
             rng.standard_normal((B, Hkv, Skv, D)))
 
 
+def _mla_inputs(name):
+    B, Hq, Hkv, Sq, Skv, D, Dv = CHUNKED_MLA[name][:7]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return (rng.standard_normal((B, Hq, Sq, D)), rng.standard_normal((B, Hkv, Skv, D)),
+            rng.standard_normal((B, Hkv, Skv, Dv)))
+
+
 def _grid_key(B, H, S, hd, dt):
     return f"{B}_{H}_{S}_{hd}_{dt}"
 
@@ -67,8 +83,10 @@ import jax.numpy as jnp
 from repro.kernels import ops
 from repro.models.layers import _chunked_attention
 CHUNKED = {CHUNKED!r}
+CHUNKED_MLA = {CHUNKED_MLA!r}
 {inspect.getsource(_grid_inputs)}
 {inspect.getsource(_chunked_inputs)}
+{inspect.getsource(_mla_inputs)}
 for B, H, S, hd, dt in {GRID!r}:
     q, k, v = (jnp.asarray(x, dt) for x in _grid_inputs(B, H, S, hd))
     for mode in {MODES!r}:
@@ -83,6 +101,12 @@ for name, (B, Hq, Hkv, Sq, Skv, D, offset, causal, dt, q_chunk) in CHUNKED.items
         offset = jnp.asarray(offset, jnp.int32)
     out = _chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk, dist=None, offset=offset)
     OUT["chunked/" + name] = np.asarray(out, np.float32)
+for name, (B, Hq, Hkv, Sq, Skv, D, Dv, offset, causal, dt, q_chunk) in CHUNKED_MLA.items():
+    q, k, v = (jnp.asarray(x, dt) for x in _mla_inputs(name))
+    if offset is not None:
+        offset = jnp.asarray(offset, jnp.int32)
+    out = _chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk, dist=None, offset=offset)
+    OUT["mla/" + name] = np.asarray(out, np.float32)
 """
     return run_reference(body)
 
@@ -121,6 +145,19 @@ def test_plain_matches_chunked_attention(reference, name):
                                atol=TOL[dt], rtol=TOL[dt])
 
 
+@pytest.mark.parametrize("name", list(CHUNKED_MLA))
+def test_plain_matches_chunked_attention_mla(reference, name):
+    """v narrower than q and k: the output takes v's width."""
+    offset, causal, dt = CHUNKED_MLA[name][7:10]
+    q, k, v = (_t(x, dt) for x in _mla_inputs(name))
+    if offset is not None:
+        offset = torch.tensor(offset, dtype=torch.int32)
+    got = ops.flash_attention(q, k, v, causal=causal, offset=offset)
+    assert got.shape == q.shape[:3] + v.shape[3:] and got.dtype == q.dtype
+    np.testing.assert_allclose(got.float().numpy(), reference["mla/" + name],
+                               atol=TOL[dt], rtol=TOL[dt])
+
+
 def test_fully_masked_rows_give_zero():
     """Sq > Skv with the default offset Skv - Sq: the first rows see no key
     and give 0, as the Pallas kernel's finalize does."""
@@ -137,6 +174,8 @@ def test_wrapper_rejects_bad_shapes():
         ops.flash_attention(q, torch.zeros(1, 2, 4, 16), torch.zeros(1, 2, 4, 16))
     with pytest.raises(ValueError, match="k = v"):
         ops.flash_attention(q, torch.zeros(1, 3, 4, 16), torch.zeros(1, 3, 5, 16))
+    with pytest.raises(ValueError, match="k = v"):      # v's heads must be k's
+        ops.flash_attention(q, torch.zeros(1, 3, 4, 16), torch.zeros(1, 1, 4, 16))
 
 
 def _decode_wave(seed=7):

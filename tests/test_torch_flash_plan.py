@@ -7,7 +7,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (DECODE_BLOCKS_PER_SM, DECODE_TILE_KEYS,
-                                                 KERNEL_ROWS, flash_attention, plan)
+                                                 KERNEL_ROWS, flash_attention, kernel_rows,
+                                                 plan)
 
 SMS = 132   # an H100 SXM
 
@@ -25,7 +26,33 @@ bf16, f32 = torch.bfloat16, torch.float32
     (bf16, 100, 0, 128, "decode"),        # no key: nothing for TMA to load
 ])
 def test_plan_picks_the_kernel(dtype, Sq, Skv, D, kernel):
-    assert plan(dtype, 2, 16, 8, Sq, Skv, D, SMS).kernel == kernel
+    assert plan(dtype, 2, 16, 8, Sq, Skv, D, D, SMS).kernel == kernel
+
+
+# MLA (deepseek-v2): q and k 192 wide, v 128, 16 heads with kv heads of their own
+@pytest.mark.parametrize("dtype,Sq,Skv,Dv,kernel", [
+    (bf16, 2048, 4096, 128, "prefill"),   # an admission of serve_moe
+    (bf16, 16, 16, 128, "prefill"),
+    (bf16, 1, 4096, 128, "decode"),       # the decode wave
+    (f32, 16, 4096, 128, "decode"),
+    (bf16, 2048, 4096, 192, "decode"),    # (192, 192) has no prefill instance
+])
+def test_plan_picks_the_kernel_mla(dtype, Sq, Skv, Dv, kernel):
+    assert plan(dtype, 8, 16, 16, Sq, Skv, 192, Dv, SMS).kernel == kernel
+
+
+def test_mla_decode_rows_are_capped():
+    """A 192-wide q row takes at most 8 rows a decode block: f32 with 16
+    queries per slot is two query tiles of 8 (R 8), and the decode wave one
+    row per block (R 1)."""
+    assert kernel_rows(192) == 8 and kernel_rows(128) == KERNEL_ROWS == 16
+    p = plan(f32, 2, 16, 16, 16, 4096, 192, 128, SMS)
+    assert (p.bq, p.rows, p.groups) == (8, 8, 2 * 16 * 2)
+    p = plan(bf16, 8, 16, 16, 1, 4096, 192, 128, SMS)
+    assert (p.kernel, p.bq, p.rows, p.groups) == ("decode", 1, 1, 8 * 16)
+    assert p.scratch_rows == p.groups * p.splits * p.rows and p.splits > 1
+    # the same shape at D 128 fills a block with 16 rows
+    assert plan(f32, 2, 16, 16, 16, 4096, 128, 128, SMS).bq == 16
 
 
 # B, Hq, Hkv, Sq, Skv, D
@@ -43,7 +70,7 @@ DECODE_SHAPES = [
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", DECODE_SHAPES)
 def test_decode_plan_covers_the_keys(B, Hq, Hkv, Sq, Skv, D):
-    p = plan(f32, B, Hq, Hkv, Sq, Skv, D, SMS)
+    p = plan(f32, B, Hq, Hkv, Sq, Skv, D, D, SMS)
     g = Hq // Hkv
     assert p.kernel == "decode"
     assert 1 <= p.bq and g * p.bq <= KERNEL_ROWS and p.rows == g * p.bq
@@ -61,7 +88,7 @@ def test_decode_plan_covers_the_keys(B, Hq, Hkv, Sq, Skv, D):
 def test_decode_plan_of_the_serve_wave():
     """8 slots x 8 kv heads: 9 chunks of 480 keys, about 4 blocks per SM
     for full caches; scratch for 2 rows per group."""
-    p = plan(bf16, 8, 16, 8, 1, 4096, 128, SMS)
+    p = plan(bf16, 8, 16, 8, 1, 4096, 128, 128, SMS)
     assert (p.bq, p.splits, p.chunk, p.groups, p.rows) == (1, 9, 480, 64, 2)
     assert p.scratch_rows == 64 * 9 * 2
 
@@ -73,7 +100,7 @@ def test_each_flash_kernel_has_a_count(name):
     plain version and counts nothing."""
     kernel = name.removeprefix("flash_attention_")
     B, Hq, Hkv, Sq, Skv, D = 1, 4, 2, (32 if kernel == "prefill" else 1), 64, 64
-    assert plan(bf16, B, Hq, Hkv, Sq, Skv, D, SMS).kernel == kernel
+    assert plan(bf16, B, Hq, Hkv, Sq, Skv, D, D, SMS).kernel == kernel
     build.LAUNCHES[name] = 7
     build.reset_launches()
     gen = torch.Generator().manual_seed(0)

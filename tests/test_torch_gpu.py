@@ -105,7 +105,9 @@ def test_relabel_gather_kernel_matches_plain(cuda, base):
 # or past Skv (idle slots), and the prefill kernel (bf16, >= 16 queries,
 # D >= 64) with Sq not a multiple of its 64-row tile, against a cache at
 # offsets > 0, non-causal, and with GQA group 5; bf16 prefill with D 16
-# takes the decode kernel.  Each output row is held to its error relative
+# takes the decode kernel; MLA's widths (q, k 192, v 128; D given as (D, Dv)):
+# the prefill kernel at an admission's shape and ragged, the decode wave,
+# f32 with 16 queries (two tiles of 8 rows).  Each output row is held to its error relative
 # to its own largest value, at flash_attention.TOLERANCE: f32 1e-5 (the sum
 # order differs); bf16 2^-6 (two bf16 ulps of the row's largest value).
 FLASH_CASES = {
@@ -128,14 +130,19 @@ FLASH_CASES = {
     "prefill_cache_offset": (2, 16, 8, 100, 4096, 128, [300, 1000], True, torch.bfloat16),
     "prefill_noncausal": (2, 16, 8, 129, 300, 128, None, False, torch.bfloat16),
     "prefill_bf16_d16": (2, 4, 2, 37, 64, 16, [3, 27], True, torch.bfloat16),
+    "mla_prefill": (1, 16, 16, 2048, 4096, (192, 128), [2048], True, torch.bfloat16),
+    "mla_prefill_ragged": (2, 16, 16, 100, 300, (192, 128), [0, 200], True, torch.bfloat16),
+    "mla_decode_wave": (8, 16, 16, 1, 4096, (192, 128), "offsets", True, torch.bfloat16),
+    "mla_f32_sq16": (2, 16, 16, 16, 700, (192, 128), [96, 684], True, torch.float32),
 }
 
 
 def _flash_inputs(name, cuda):
     B, Hq, Hkv, Sq, Skv, D, offset, causal, dtype = FLASH_CASES[name]
+    D, Dv = D if isinstance(D, tuple) else (D, D)
     g = torch.Generator(device="cpu").manual_seed(len(name))
     q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype)
-               for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+               for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, Dv)))
     if offset == "offsets":
         offset = torch.randint(127, 4095, (B,), generator=g, dtype=torch.int32)
     if offset is not None:
@@ -157,7 +164,8 @@ def test_flash_attention_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["b_decode_wave", "decode_g5_idle", "prefill_cache_offset"])
+@pytest.mark.parametrize("name", ["b_decode_wave", "decode_g5_idle", "prefill_cache_offset",
+                                  "mla_decode_wave", "mla_prefill"])
 @pytest.mark.parametrize("fault", ["scale", "drop_last_keys"])
 def test_flash_attention_check_rejects_planted_faults(cuda, fault, name):
     """A decode wave or a prefill against the cache run with the softmax
@@ -171,6 +179,57 @@ def test_flash_attention_check_rejects_planted_faults(cuda, fault, name):
     else:
         bad = ops.flash_attention(q, k, v, causal=causal, offset=offset - 32)
     assert row_error(bad, want) > TOLERANCE[q.dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(24, 16), (192, 192), (128, 64)])
+def test_flash_attention_kernel_rejects_other_widths(cuda, D, Dv):
+    """The MLA smoke's (24, 16) and other pairs the kernels were not built
+    for raise on the card; nothing gives way to the plain version."""
+    q = torch.zeros(1, 4, 16, D, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 4, 32, D, device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros(1, 4, 32, Dv, device=cuda, dtype=torch.bfloat16)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [{}, {"num_experts": 64, "experts_per_tok": 6}])
+def test_moe_ffn_on_the_card_makes_no_host_sync(cuda, monkeypatch, over):
+    """The deepseek-v2 smoke's MoE layer on the card, with its own experts
+    and with serve_moe's 64 (top 6): one bucket_hist launch, no host sync
+    (CUDA sync debug mode "error"), no torch.bincount, and the CPU's y and
+    aux."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_all, moe
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(cuda) for k, v in tree.items()}
+
+    def refuse(*args, **kw):
+        raise AssertionError("torch.bincount called")
+
+    cfg = get_smoke_config("deepseek-v2-lite-16b").with_(**over)
+    p = init_all(cfg, seed=0, device="cpu")["blocks"][cfg.first_k_dense]["ffn"]
+    x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    want_y, want_aux = moe.moe_ffn(p, cfg, x)
+    p, x = to(p), x.to(cuda)
+    moe.moe_ffn(p, cfg, x)                      # builds and loads the kernels
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch, "bincount", refuse)
+    before = ops.LAUNCHES["bucket_hist"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_ffn(p, cfg, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.LAUNCHES["bucket_hist"] == before + 1
+    torch.testing.assert_close(y.cpu(), want_y, atol=1e-5, rtol=1e-5)
+    assert int(aux["dropped"]) == int(want_aux["dropped"])
+    for k in ("lb_loss", "z_loss"):
+        torch.testing.assert_close(aux[k].cpu(), want_aux[k], atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.gpu

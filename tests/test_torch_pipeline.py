@@ -153,6 +153,8 @@ def test_bucket_by_destination_matches_reference(capacity, with_valid):
     for f in ("data", "valid", "position", "dropped"):
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
                                       err_msg=f)
+    live = dest if valid is None else dest[valid]
+    np.testing.assert_array_equal(got.counts.numpy(), np.bincount(live, minlength=k))
     back = coll.unbucket(got.data, got.position, fill=-7)
     np.testing.assert_array_equal(back.numpy(), np.asarray(
         ref_coll.unbucket(want.data, want.position, fill=-7)))
@@ -179,8 +181,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert {"repro_torch.serve", "repro_torch.models", "repro_torch.launch.serve",
-        "repro_torch.data", "repro_torch.data.walks", "repro_torch.data.loader"} <= set(names)
+assert {"repro_torch.serve", "repro_torch.models", "repro_torch.models.moe",
+        "repro_torch.launch.serve", "repro_torch.data", "repro_torch.data.walks",
+        "repro_torch.data.loader"} <= set(names)
 assert {f"repro_torch.core.{m}" for m in ("trace", "blockstore", "shardmap", "transport",
         "corpus", "phases", "external", "chunks", "hostgen", "types", "cluster",
         "jobqueue")} <= set(names)

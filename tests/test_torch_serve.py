@@ -2,7 +2,9 @@
 
 The reference runs once per file in a subprocess (tests/torch_parity.py): it
 serves the request sets of tests/test_serve.py with its `Engine` and
-`generate_reference` on the smoke configs (f32) and exports its parameters;
+`generate_reference` on the smoke configs (f32; dense, and the two MoE ones,
+whose bucketed prefills route their right-padding too) and exports its
+parameters;
 the port serves the same requests with the same parameters
 (`params_from_reference`) and must give the same tokens and statistics.
 Greedy decoding compares argmaxes of logits that agree to ~3e-6
@@ -20,6 +22,7 @@ from repro_torch.serve import Engine, Request, SamplingParams, generate_referenc
 from torch_parity import run_reference
 
 ARCHS = ("internlm2-1.8b", "codeqwen1.5-7b")
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b")
 SAMPLED = dict(temperature=0.8, top_k=40)
 
 
@@ -45,7 +48,8 @@ def _overflow_requests():
 # (name, arch, engine kwargs, request-set expression); every set is built the
 # same way on both sides from the helpers above
 ENGINE_CASES = [
-    ("oracle_" + arch, arch, dict(max_batch=2, max_len=64), "_requests(5, V)") for arch in ARCHS
+    ("oracle_" + arch, arch, dict(max_batch=2, max_len=64), "_requests(5, V)")
+    for arch in ARCHS + MOE_ARCHS
 ] + [
     ("slot_reuse", ARCHS[0], dict(max_batch=2, max_len=64), "_requests(6, V, max_new=3)"),
     ("bucketed", ARCHS[0], dict(max_batch=2, max_len=64, bucket_prefill=True),
@@ -58,7 +62,7 @@ ENGINE_CASES = [
     ("sampled", ARCHS[0], dict(max_batch=2, max_len=64), "_requests(6, V, seed=4, sampled=True)"),
     ("overflow", ARCHS[0], dict(max_batch=2, max_len=16), "_overflow_requests()"),
 ]
-ORACLE = {arch: "_requests(5, V)" for arch in ARCHS}
+ORACLE = {arch: "_requests(5, V)" for arch in ARCHS + MOE_ARCHS}
 
 
 def _helpers_source():
@@ -78,10 +82,12 @@ from repro.models.registry import init_all
 from repro.serve import Engine, Request, SamplingParams, generate_reference
 {_helpers_source()}
 params = {{}}
-for arch in {ARCHS!r}:
+for arch in {ARCHS + MOE_ARCHS!r}:
     cfg = get_smoke_config(arch)
     params[arch], _ = init_all(cfg, seed=0)
     flat = paths_from_tree({{k: v for k, v in params[arch].items() if k != "prefix"}})
+    for i, layer in enumerate(params[arch]["prefix"]):
+        flat.update(paths_from_tree(layer, f"prefix/{{i}}"))
     for path, v in flat.items():
         OUT[arch + "/param/" + path] = np.asarray(v, np.float32)
 for name, arch, kw, reqs in {[(n, a, kw, r) for n, a, kw, r in ENGINE_CASES]!r}:
@@ -114,7 +120,7 @@ for uid, toks in launch_serve.main([]).items():
 @pytest.fixture(scope="module")
 def params(reference):
     out = {}
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         pre = arch + "/param/"
         flat = {k[len(pre):]: v for k, v in reference.items() if k.startswith(pre)}
         out[arch] = params_from_reference(get_smoke_config(arch), flat, device="cpu")
@@ -150,7 +156,7 @@ def test_idle_slot_overflow(reference, params):
     assert max(eng.cache["length"].tolist()) == 30 == reference["overflow/lengths"].max()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_generate_reference_matches(reference, params, arch):
     cfg = get_smoke_config(arch)
     V = cfg.vocab_size  # noqa: F841
