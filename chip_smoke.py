@@ -13,10 +13,13 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    1-D bulk copies; prefill: wgmma + TMA) are held, row by row, to their
    error relative to the row's largest value (`flash_attention.row_error`):
    1e-5 in f32 (the sum order differs), 2^-6 in bf16 (two bf16 ulps of the
-   row's largest value), in cases (a)-(i) and MLA's (j)-(l) (q and k 192
-   wide, v 128), and planted faults at the main paths' shapes (the softmax
-   scale 5 % off; the last 32 keys of each row dropped) must exceed that
-   limit.  `bucket_hist` is timed at the main
+   row's largest value), in cases (a)-(i), MLA's (j)-(l) (q and k 192
+   wide, v 128), zamba2's (m)-(o) (80 wide) and encdec_main's and
+   vlm_main's shapes (p)-(v) (seamless's non-causal encoder and cross
+   attention, llava's GQA prefill and decode), and planted faults at the
+   main paths' shapes (the softmax scale 5 % off; the last 32 keys of each
+   row dropped; at width 80, q.k over columns 0-63 only and output columns
+   64-79 dropped) must exceed that limit.  `bucket_hist` is timed at the main
    shape, at walks_main's call, at the walk shape of capacity factor 4, at
    k 64 and with no ids (its fixed cost, beside an empty kernel), at
    serve_moe's expert dispatch (k 64: an admission's 2048 x 6 ids, a decode
@@ -27,8 +30,8 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    each kernel instance's registers and spills, and the run fails unless
    every prefill instance issues HGMMA and UTMALDG and every decode instance
    an asynchronous copy (UBLKCP or LDGSTS), unless no decode and no
-   `bucket_hist` instance spills, and unless MLA's (192, 128) instances
-   were built;
+   `bucket_hist` instance spills, and unless MLA's (192, 128) and
+   zamba2's (80, 80) instances were built;
 2. variant phase: every generate() variant at scale 16, nb 8, on the card
    and on the CPU, bit-equal; then walks_parity: distributed_walks (length
    80, 256 walkers per shard) and WalkLoader batches 0-2 on that graph,
@@ -92,8 +95,11 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
 5. serve_parity phase: the serve path's smoke configs (internlm2, codeqwen,
    qwen3-moe; f32) and the deepseek-v2 smoke at MLA's real head widths and
    routing (q/k 192, v 128, 64 experts top-6; its own (24, 16) heads, which
-   the kernel does not take, must raise on the card) on the card and on the
-   CPU: prefill and decode logits within 1e-4, the Engine's tokens equal;
+   the kernel does not take, must raise on the card), the mamba2, zamba2,
+   seamless and llava smokes (f32) and zamba2's at its real head width 80
+   (f32, and bf16 through the (80, 80) prefill kernel) on the card and on
+   the CPU: prefill and decode logits within 1e-4 (bf16: 1e-1), the
+   Engine's tokens equal (the families it serves, f32);
 6. serve_main phase: the continuous-batching Engine serving internlm2-1.8b
    at full width (bf16, random weights from a seeded generator on the card),
    8 slots of 4096 positions, 16 requests of 128-2048 prompt tokens and 64
@@ -102,8 +108,9 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    finite, and flash launches = layers x (prefills + decode waves), the
    prefill kernel's layers x prefills and the decode kernel's layers x
    decode waves; then a
-   short window of the same engine under torch.profiler (`serve_trace`:
-   the card's busy share and device time by kernel);
+   short window of the same engine under torch.profiler (`serve_trace`: a
+   512-token request a slot, 32 new tokens each; the card's busy share,
+   device time by kernel, and the window's prefill and decode ms);
 7. serve_moe phase: the same Engine and requests serving deepseek-v2-lite-16b
    at full width and depth (27 layers, MLA + 64-expert MoE, bf16, random
    weights from a seeded generator on the card): every request served,
@@ -114,7 +121,22 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    around `moe_ffn`) and the drop totals of prefill and decode, the prefill
    drops recounted with plain ops from each layer's routes (equal to the
    dispatch's count) and split between prompt rows and right-padding; then
-   its serve_trace window.
+   its serve_trace window;
+8. serve_ssm and serve_hybrid: the same Engine and requests serving
+   mamba2-780m (48 Mamba2 layers, no attention: no flash launch) and
+   zamba2-2.7b (54 Mamba2 layers, the shared attention block at 9 sites of
+   32 heads of 80: flash launches 9 x (prefills + waves), the prefill
+   kernel 9 x prefills, the decode kernel 9 x waves) at full width and
+   depth, bf16, exact-length prefills; each admission's prompt tokens, SSD
+   chunk and ms; for mamba2 the cost of one admission at 2048 and 2039
+   prompt tokens (`chunk_cost`); their serve_trace windows;
+9. encdec_main and vlm_main: seamless-m4t-large-v2 (24 + 24 layers, vocab
+   256206; 4 sequences of 1024 encoder frames and a 128-token prompt) and
+   llava-next-mistral-7b (32 layers; 4 sequences of 1176 image tokens and
+   512 text tokens) at full width and depth, bf16, through prefill and 64
+   greedy decode_steps: ms of encode + prefill and per step, peak memory,
+   flash launches by kernel, every logit finite, the prefill's last logits
+   held to a forward without a cache.
 
 Prints the card's name and power limit, one JSON line per check, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Any failed
@@ -157,13 +179,31 @@ SERVE_SAMPLED = (3, 7, 11, 15)     # uids that sample (temperature 0.8, top-k 40
 SERVE_SEED = 0
 TRACE_PROMPT, TRACE_NEW_TOKENS = 512, 32   # serve_trace's window
 MOE_ARCH = "deepseek-v2-lite-16b"   # serve_moe: the MoE + MLA config that fits one card
+SSM_ARCH = "mamba2-780m"            # serve_ssm: attention-free, 48 Mamba2 layers
+HYBRID_ARCH = "zamba2-2.7b"         # serve_hybrid: 54 Mamba2 layers, 9 sites of 32 heads of 80
+ENCDEC_ARCH = "seamless-m4t-large-v2"   # encdec_main: 24 + 24 layers, prefill + decode_step
+VLM_ARCH = "llava-next-mistral-7b"      # vlm_main: 1176 image tokens before the text
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT = 4, 1024, 128
+VLM_BATCH, VLM_TEXT = 4, 512
+GEN_STEPS = 64                     # greedy decode steps of encdec_main and vlm_main
+# serve_ssm's admission cost by prompt length: a length 256 divides, and the
+# prime beside it, where the reference's chunking (the largest divisor of S
+# up to 256) falls to chunks of 1 position
+CHUNK_COST_LENGTHS = (2048, 2039)
 PARITY_ARCHS = ("internlm2-1.8b", "codeqwen1.5-7b", "qwen3-moe-235b-a22b", MOE_ARCH)
+PARITY_FAMILIES = (SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH, VLM_ARCH)   # prefill of 20 tokens
+# zamba2's smoke at its real head width 80 (d_model 320 over 4 heads), the
+# rest the smoke's; its bf16 prefill of 20 tokens takes the (80, 80) prefill kernel
+PARITY_D80 = dict(d_model=320, num_heads=4, num_kv_heads=4)
 # deepseek-v2's smoke at the real MLA head widths (q/k 128 + 64, v 128) and
 # routing (64 experts, top-6, unnormalised weights), a few layers; the
 # smoke's own (24, 16) heads are not a width the kernel takes
 PARITY_MLA = dict(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128, num_experts=64,
                   experts_per_tok=6, norm_topk_prob=False)
 PARITY_TOL = 1e-4                  # f32 logits, card vs CPU: the sum order differs
+# bf16 logits, card vs CPU: activations are rounded to 8 bits after other
+# sums (the kernels', cuBLAS's and the CPU's), the tests' bf16 tolerance
+PARITY_BF16_TOL = 1e-1
 WALK_LENGTH = 80                   # DeepWalk's walk length (Perozzi et al., KDD 2014)
 WALK_WALKERS = 1 << 20             # walkers per shard in walks_main: 2^23 walks
 # Before the first hop every walker is still on the shard that launched it,
@@ -217,6 +257,14 @@ def nvidia_smi(query: str) -> str:
                        capture_output=True, text=True, timeout=60)
     require(r.returncode == 0, f"nvidia-smi failed: {r.stderr}")
     return r.stdout.strip().splitlines()[0]
+
+
+_MARKS = []   # (phase, perf_counter at its end), for the timeline line
+
+
+def mark(phase: str) -> None:
+    """Note the end of `phase` (its seconds are the time since the last mark)."""
+    _MARKS.append((phase, time.perf_counter()))
 
 
 def time_ms(fn, reps=5):
@@ -283,6 +331,7 @@ def main() -> int:
     from repro_torch.core.types import GraphConfig
     from repro_torch.kernels import bucket, build, ops, sass
 
+    mark("start")
     dev = torch.device("cuda", 0)
     card = nvidia_smi("name,power.limit")
     print(card, flush=True)
@@ -299,6 +348,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "libraries": [p.name for p in build.build()]})
     attention_build_phase(sass, attn_lib)
+    mark("build")
     main_cfg = GraphConfig(scale=MAIN_SCALE, nb=NB)
     eps, B, rounds = main_cfg.edges_per_shard, main_cfg.bucket_size, main_cfg.feistel_rounds
     listing = sass.listing(graph_lib)
@@ -512,9 +562,10 @@ def main() -> int:
                  n_ops=ops_per_item["relabel_gather"] * seg.numel(), size=seg.numel())
     del xr, dk, block, seg
     flash = flash_phase(torch, ops, dev, g, time_ms)
-    shapes["flash_attention_prefill"] = [flash["j"]]
-    shapes["flash_attention_decode"] = [flash["k"], flash["l"]]
+    shapes["flash_attention_prefill"] = [flash[c] for c in "jnpqru"]
+    shapes["flash_attention_decode"] = [flash[c] for c in "klmostv"]
     torch.cuda.empty_cache()
+    mark("kernels")
 
     # ------------------------------------------------------------------
     # 2. variant phase: card == CPU for every variant at scale 16
@@ -551,6 +602,7 @@ def main() -> int:
     del hc, hd, pc, pd
     walks_parity_phase(torch, dev)
     torch.cuda.empty_cache()
+    mark("variants, walks_parity")
 
     # ------------------------------------------------------------------
     # 3. main phase: the full-size graph twice, first with an empty
@@ -614,6 +666,7 @@ def main() -> int:
     main_counts["main_cold"], _ = run_main("main_cold", "paper", cold=True)
     main_counts["main"], main_csr = run_main("main", "paper", cold=False, keep_csr=True)
     main_counts["main_recompute"], _ = run_main("main_recompute", "recompute", cold=False)
+    mark("main (cold, warm, recompute)")
     require(main_counts["main_cold"] == main_counts["main"], "cold and warm runs launched differently")
     for name in ("rmat_edges", "relabel_gather", "bucket_hist"):
         require(main_counts["main"][name] > 0, f"main path never launched {name}")
@@ -625,6 +678,7 @@ def main() -> int:
     loader_main_phase(torch, dev, main_cfg, main_csr)
     del main_csr
     torch.cuda.empty_cache()
+    mark("walks_main, walks_trace, loader_main")
 
     # ------------------------------------------------------------------
     # 4. the disk tier: card == CPU for every driver and variant, and
@@ -633,20 +687,35 @@ def main() -> int:
     # the out-of-core main configuration on two card hosts
     # ------------------------------------------------------------------
     cluster_parity_phase(lambda: external_parity_phase(torch, dev))
+    mark("external_parity, cluster_parity")
     main_counts["external_main"], external_csr = external_main_phase(torch, ops, dev)
     torch.cuda.empty_cache()
+    mark("external_main")
     main_counts["external_recompute"] = external_recompute_phase(torch, ops, dev)
+    mark("external_recompute")
     main_counts["cluster_main"] = cluster_main_phase(torch, ops, dev, external_csr)
+    mark("cluster_main")
 
     # ------------------------------------------------------------------
-    # 5-7. the serve path: card == CPU on the smoke configs, then the
-    # full-width Engines (dense, then MoE + MLA)
+    # 5-9. the serve path: card == CPU on the smoke configs, then the
+    # full-width Engines (dense, MoE + MLA, ssm, hybrid), then encdec and
+    # vlm through prefill + decode_step
     # ------------------------------------------------------------------
     serve_parity_phase(torch, ops, dev)
     torch.cuda.empty_cache()
-    main_counts["serve_main"] = serve_phase(torch, ops, dev, SERVE_ARCH, "serve_main")
-    torch.cuda.empty_cache()
-    main_counts["serve_moe"] = serve_phase(torch, ops, dev, MOE_ARCH, "serve_moe")
+    mark("serve_parity")
+    for label, arch in (("serve_main", SERVE_ARCH), ("serve_moe", MOE_ARCH),
+                        ("serve_ssm", SSM_ARCH), ("serve_hybrid", HYBRID_ARCH)):
+        main_counts[label] = serve_phase(torch, ops, dev, arch, label)
+        torch.cuda.empty_cache()
+        mark(label)
+    for label, arch in (("encdec_main", ENCDEC_ARCH), ("vlm_main", VLM_ARCH)):
+        main_counts[label] = generate_phase(torch, ops, dev, arch, label)
+        torch.cuda.empty_cache()
+        mark(label)
+    emit({"phase": "timeline", "seconds": {name: t - _MARKS[i - 1][1]
+                                           for i, (name, t) in enumerate(_MARKS) if i},
+          "total_s": _MARKS[-1][1] - _MARKS[0][1]})
 
     sources = {
         "rmat_edges": "src/repro/kernels/rmat.py:85",
@@ -1526,6 +1595,11 @@ def attention_build_phase(sass, lib):
     want = {"prefill<192,128>"} | {f"decode<{t},192,128,{r}>" for t in ("bf16", "f32")
                                    for r in (1, 2, 4, 8)}
     require(mla == want, f"MLA attention instances {sorted(mla)}, want {sorted(want)}")
+    # zamba2's (80, 80): the prefill instance and the decode row buckets 1-16 of both types
+    d80 = {row["kernel"] for row in found if "80,80" in row["kernel"]}
+    want = {"prefill<80,80>"} | {f"decode<{t},80,80,{r}>" for t in ("bf16", "f32")
+                                 for r in (1, 2, 4, 8, 16)}
+    require(d80 == want, f"(80, 80) attention instances {sorted(d80)}, want {sorted(want)}")
     emit({"phase": "attention_build", "listing": lib.with_suffix(".sass").name,
           "instances": found})
 
@@ -1560,10 +1634,22 @@ def flash_phase(torch, ops, dev, g, time_ms):
     widths (q, k 192; v 128; 16 heads, each its own kv head), as serve_moe
     runs them: (j) an admission's prefill, (k) the decode wave, (l) f32 with
     16 queries (two 8-row tiles; all timed, SDPA beside them where it takes
-    v narrower than q).  In (a), (b), (h) and (j)-(l) the kernel is also
-    run with planted faults, which the check must reject."""
+    v narrower than q); zamba2's 80-wide heads (32 heads, each its own kv
+    head), as serve_hybrid runs them: (m) the decode wave, (n) an
+    admission's prefill, (o) f32 with ragged Sq and Skv, non-causal (all
+    timed); seamless's (64, 64), as encdec_main runs them: (p) the encoder's
+    non-causal self-attention, (q) cross-attention at prefill, (r) the
+    decoder's causal prefill, (s) the cross-attention and (t) the
+    self-attention decode waves; llava's (128, 128) with GQA group 4, as
+    vlm_main runs them: (u) the prefill of image and text, (v) the decode
+    wave (all timed).  In (a), (b), (h) and (j)-(v) the kernel is also run
+    with planted faults, which the check must reject (the softmax scale 5 %
+    off; the last 32 keys of each row dropped); at width 80 also two
+    kernels that kept 64-column atoms: q.k over columns 0-63 only, and
+    output columns 64-79 dropped."""
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import TOLERANCE, plan, row_error
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1574,6 +1660,14 @@ def flash_phase(torch, ops, dev, g, time_ms):
     ragged = torch.tensor([0, 31, 480, 1500, 2999, 4094, 4095, 5096], dtype=torch.int32,
                           device=dev)
     mla = (192, 128)
+
+    def at(n, offset):
+        return torch.full((n,), offset, dtype=torch.int32, device=dev)
+
+    # encdec_main's and vlm_main's cache lengths (prompt and decode steps)
+    encdec_len = ENCDEC_PROMPT + GEN_STEPS
+    vlm_prompt = get_config(VLM_ARCH).num_image_tokens + VLM_TEXT
+    vlm_len = vlm_prompt + GEN_STEPS
     # B, Hq, Hkv, Sq, Skv, D (or (D, Dv)), offsets [B], causal, dtype, timed, planted faults
     cases = {
         "a": ("prefill: B 1, Sq 2048 against the 4096-slot cache, offset 0, D 128, bf16",
@@ -1607,6 +1701,33 @@ def flash_phase(torch, ops, dev, g, time_ms):
         "l": ("MLA f32: B 2, H 16, Sq 16, Skv 4096, offsets [1000, 4080], D 192, Dv 128",
               2, 16, 16, 16, SERVE_MAX_LEN, mla,
               torch.tensor([1000, 4080], dtype=torch.int32, device=dev), True, f32, True, True),
+        "m": ("zamba2 decode wave: B 8, H 32, Sq 1, Skv 4096, per-slot offsets in [127, 4094], "
+              "D 80, bf16", B, 32, 32, 1, SERVE_MAX_LEN, 80, decode_off, True, bf16, True, True),
+        "n": ("zamba2 prefill: B 1, H 32, Sq 2048 against the 4096-slot cache, offset 0, D 80, "
+              "bf16", 1, 32, 32, 2048, SERVE_MAX_LEN, 80, zero, True, bf16, True, True),
+        "o": ("D 80 f32, non-causal: B 2, H 32, Sq 37, Skv 1531", 2, 32, 32, 37, 1531, 80, None,
+              False, f32, True, True),
+        "p": ("seamless encoder self-attention: B 4, H 16, Sq = Skv 1024, D 64, bf16, non-causal",
+              ENCDEC_BATCH, 16, 16, ENCDEC_FRAMES, ENCDEC_FRAMES, 64, None, False, bf16, True,
+              True),
+        "q": ("seamless cross-attention, prefill: B 4, H 16, Sq 128, Skv 1024 encoder keys, D 64, "
+              "bf16, non-causal", ENCDEC_BATCH, 16, 16, ENCDEC_PROMPT, ENCDEC_FRAMES, 64, None,
+              False, bf16, True, True),
+        "r": ("seamless decoder self-attention, prefill: B 4, H 16, Sq 128 against the 192-slot "
+              "cache, offset 0, D 64, bf16", ENCDEC_BATCH, 16, 16, ENCDEC_PROMPT, encdec_len, 64,
+              at(ENCDEC_BATCH, 0), True, bf16, True, True),
+        "s": ("seamless cross-attention decode wave: B 4, H 16, Sq 1, Skv 1024 encoder keys, D 64, "
+              "bf16, non-causal", ENCDEC_BATCH, 16, 16, 1, ENCDEC_FRAMES, 64, None, False, bf16,
+              True, True),
+        "t": ("seamless self-attention decode wave: B 4, H 16, Sq 1, Skv 192, offsets 160, D 64, "
+              "bf16", ENCDEC_BATCH, 16, 16, 1, encdec_len, 64,
+              at(ENCDEC_BATCH, ENCDEC_PROMPT + GEN_STEPS // 2), True, bf16, True, True),
+        "u": ("llava prefill: B 4, Hq 32, Hkv 8, Sq 1688 (1176 image + 512 text tokens) against "
+              "the 1752-slot cache, offset 0, D 128, bf16", VLM_BATCH, 32, 8, vlm_prompt, vlm_len,
+              128, at(VLM_BATCH, 0), True, bf16, True, True),
+        "v": ("llava decode wave: B 4, Hq 32, Hkv 8, Sq 1, Skv 1752, offsets 1720, D 128, bf16",
+              VLM_BATCH, 32, 8, 1, vlm_len, 128, at(VLM_BATCH, vlm_prompt + GEN_STEPS // 2), True,
+              bf16, True, True),
     }
     out = {}
     for key, (case, B_, Hq, Hkv, Sq, Skv, D, off, causal, dtype, timed, planted) in cases.items():
@@ -1630,17 +1751,36 @@ def flash_phase(torch, ops, dev, g, time_ms):
         if planted:
             # planted faults: the check must tell them from the sound kernel
             faults = {"softmax scale 5 % off": ops.flash_attention(
-                q, k, v, causal=causal, offset=off, scale=1.05 / D ** 0.5),
-                "last 32 keys of each row dropped": ops.flash_attention(
-                    q, k, v, causal=causal, offset=off - 32)}
+                q, k, v, causal=causal, offset=off, scale=1.05 / D ** 0.5)}
+            if causal:
+                faults["last 32 keys of each row dropped"] = ops.flash_attention(
+                    q, k, v, causal=causal, offset=off - 32)
+            else:
+                faults["last 32 keys dropped"] = ops.flash_attention(
+                    q, k[:, :, :-32].contiguous(), v[:, :, :-32].contiguous(), causal=False)
+            if D == 80:
+                # a kernel that kept 64-column atoms: the prefill's one box of
+                # q and k columns, the decode kernel's 2 output columns a lane
+                q64 = q.clone()
+                q64[..., 64:] = 0
+                faults["q.k over columns 0-63 only"] = ops.flash_attention(
+                    q64, k, v, causal=causal, offset=off)
+                head = ops.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                                           v[..., :64].contiguous(), causal=causal, offset=off,
+                                           scale=D ** -0.5)
+                faults["output columns 64-79 dropped"] = torch.cat(
+                    [head, torch.zeros_like(want[..., 64:])], dim=-1)
+                del q64, head
             line["planted_faults"] = {name: row_error(bad, want) for name, bad in faults.items()}
             for name, bad_err in line["planted_faults"].items():
                 require(bad_err > tol, f"flash_attention [{key}]: planted fault '{name}' passes "
                                        f"the check: row error {bad_err} <= {tol}")
             del faults
         if timed:
-            qpos = off[:, None] + torch.arange(Sq, device=dev)[None, :]
-            mask = (torch.arange(Skv, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
+            mask = None
+            if causal:
+                qpos = off[:, None] + torch.arange(Sq, device=dev)[None, :]
+                mask = (torch.arange(Skv, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=mask, enable_gqa=True)
             line["kernel_ms"] = time_ms(kernel)
@@ -1674,21 +1814,29 @@ def _serve_requests(n, vocab, rng, plen, max_new, sampled):
 
 
 def serve_parity_phase(torch, ops, dev):
-    """The smoke configs (f32) on the card and on the CPU: the same
-    parameters give logits within PARITY_TOL and the Engine the same tokens,
-    the card's runs launching flash_attention and, for MoE, bucket_hist.
-    deepseek-v2's smoke runs at MLA's real widths (PARITY_MLA): its own
-    (24, 16) heads must raise on the card."""
+    """The smoke configs on the card and on the CPU: the same parameters give
+    prefill and decode logits within PARITY_TOL (f32; PARITY_BF16_TOL in
+    bf16) and the Engine (families it serves, f32) the same tokens, the
+    card's runs launching flash_attention where the config has attention and
+    bucket_hist where it has experts.  The dense and MoE smokes (f32; 8
+    prompt tokens): deepseek-v2's runs at MLA's real widths (PARITY_MLA),
+    and its own (24, 16) heads must raise on the card.  The ssm, hybrid,
+    encdec and vlm smokes (mamba2, zamba2, seamless, llava; f32; 20 prompt
+    tokens, seamless with 24 encoder frames, llava after its 16 image
+    tokens) and zamba2's at its real head width 80 (PARITY_D80), f32 and
+    bf16 (whose prefill must run the (80, 80) prefill kernel)."""
     import numpy as np
 
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import get_model, init_all
+    from repro_torch.models import get_model, init_all, input_specs
     from repro_torch.serve import Engine
+    from repro_torch.serve.engine import SUPPORTED_FAMILIES
 
+    cases = []      # (config, prompt tokens, tolerance)
     for arch in PARITY_ARCHS:
         cfg = get_smoke_config(arch)
-        api = get_model(cfg)
         if cfg.kv_lora_rank:
+            api = get_model(cfg)
             params = init_all(cfg, seed=SERVE_SEED, device=dev)
             try:
                 api.prefill(cfg, params, {"tokens": torch.zeros((1, 8), dtype=torch.int32,
@@ -1700,51 +1848,78 @@ def serve_parity_phase(torch, ops, dev):
             require("head dims" in raised,
                     f"serve_parity {arch}: the smoke's MLA heads did not raise on the card")
             cfg = cfg.with_(name=f"{cfg.name}-mla-widths", **PARITY_MLA)
+        cases.append((cfg, 8, PARITY_TOL))
+    cases += [(get_smoke_config(arch), 20, PARITY_TOL) for arch in PARITY_FAMILIES]
+    d80 = get_smoke_config(HYBRID_ARCH).with_(name="zamba2-smoke-d80", **PARITY_D80)
+    cases += [(d80, 20, PARITY_TOL),
+              (d80.with_(name="zamba2-smoke-d80-bf16", dtype="bfloat16"), 20, PARITY_BF16_TOL)]
+
+    for cfg, n_pre, tol in cases:
+        t0 = time.perf_counter()
+        api = get_model(cfg)
         on = {"cpu": init_all(cfg, seed=SERVE_SEED, device="cpu")}
         on["cuda"] = _to(on["cpu"], dev)
-        tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+        n_img = cfg.num_image_tokens
         logits = {}
         ops.reset_launches()
         for where, params in on.items():
             d = dev if where == "cuda" else torch.device("cpu")
-            t = torch.from_numpy(tokens).to(d)
-            cache = api.init_cache(cfg, 2, 64, d)
-            lg, cache = api.prefill(cfg, params, {"tokens": t[:, :8]}, cache)
+            batch = input_specs(cfg, "prefill", 2, n_img + n_pre + 4, seed=1, device=d)
+            t = batch["tokens"]
+            cache = api.init_cache(cfg, 2, n_img + 64, d)
+            lg, cache = api.prefill(cfg, params, dict(batch, tokens=t[:, :n_pre]), cache)
             logits[where] = [lg]
-            for i in range(8, 12):
+            for i in range(n_pre, n_pre + 4):
                 lg, cache = api.decode_step(cfg, params, t[:, i:i + 1], cache)
                 logits[where].append(lg)
-        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(logits["cuda"], logits["cpu"]))
-        require(err <= PARITY_TOL, f"serve_parity {cfg.name}: logits card vs CPU differ by {err}")
-        served = {}
-        for where, params in on.items():
-            reqs = _serve_requests(8, cfg.vocab_size, np.random.default_rng(2), (1, 24), 8,
-                                   sampled=(1, 4, 6))
-            eng = Engine(cfg, params, max_batch=4, max_len=64, device=dev if where == "cuda" else "cpu")
-            served[where] = (eng.run(reqs), eng.steps, eng.prefill_tokens, eng.decode_tokens)
-        require(served["cuda"] == served["cpu"],
-                f"serve_parity {cfg.name}: Engine differs card vs CPU")
-        launches = {n: ops.LAUNCHES[n] for n in ("flash_attention", "bucket_hist")}
-        require(launches["flash_attention"] > 0
+        err = max(float((a.float().cpu() - b.float()).abs().max())
+                  for a, b in zip(logits["cuda"], logits["cpu"]))
+        require(err <= tol, f"serve_parity {cfg.name}: logits card vs CPU differ by {err} > {tol}")
+        line = {"phase": "serve_parity", "arch": cfg.name, "dtype": cfg.dtype, "head_dim": cfg.hd,
+                "logits_max_abs_diff": err, "tolerance": tol}
+        if cfg.family in SUPPORTED_FAMILIES and cfg.dtype == "float32":
+            served = {}
+            for where, params in on.items():
+                reqs = _serve_requests(8, cfg.vocab_size, np.random.default_rng(2), (1, 24), 8,
+                                       sampled=(1, 4, 6))
+                eng = Engine(cfg, params, max_batch=4, max_len=64,
+                             device=dev if where == "cuda" else "cpu")
+                served[where] = (eng.run(reqs), eng.steps, eng.prefill_tokens, eng.decode_tokens)
+            require(served["cuda"] == served["cpu"],
+                    f"serve_parity {cfg.name}: Engine differs card vs CPU")
+            line.update({"tokens_equal": True, "requests": len(served["cpu"][0]),
+                         "steps": served["cpu"][1]})
+        launches = {n: ops.LAUNCHES[n] for n in ("flash_attention", "flash_attention_prefill",
+                                                  "bucket_hist")}
+        require((launches["flash_attention"] > 0) == (cfg.family != "ssm")
                 and (launches["bucket_hist"] > 0) == (cfg.num_experts > 0),
                 f"serve_parity {cfg.name}: card launches {launches}")
-        emit({"phase": "serve_parity", "arch": cfg.name, "dtype": cfg.dtype,
-              "logits_max_abs_diff": err, "tolerance": PARITY_TOL, "tokens_equal": True,
-              "requests": len(served["cpu"][0]), "steps": served["cpu"][1],
-              "card_launches": launches})
+        if cfg.hd == 80 and cfg.dtype == "bfloat16":
+            require(launches["flash_attention_prefill"] > 0,
+                    f"serve_parity {cfg.name}: the (80, 80) prefill kernel never ran")
+        line.update({"card_launches": launches, "seconds": time.perf_counter() - t0})
+        emit(line)
 
 
 def serve_phase(torch, ops, dev, arch, label):
     """`arch` at full width behind the continuous-batching Engine, then a
     serve_trace window.  For an MoE config also the MoE layers' time and
-    drops, and bucket_hist's launches.  Returns the launch counts of the run."""
+    drops, and bucket_hist's launches; for the ssm and hybrid families each
+    admission's prompt tokens, SSD chunk and ms, and for ssm the cost of one
+    admission by prompt length (`chunk_cost`).  Flash launches: one per
+    attention layer (dense, moe; hybrid: one per site of the shared block;
+    ssm: none) and forward.  Returns the launch counts of the run."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_all, layers, moe, transformer
+    from repro_torch.models.ssm import _pick_chunk
     from repro_torch.serve import Engine
 
     cfg = get_config(arch)
+    # flash_attention calls of one forward
+    attn_layers = {"ssm": 0, "hybrid": cfg.num_layers // max(1, cfg.shared_attn_every)}.get(
+        cfg.family, cfg.num_layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
@@ -1803,10 +1978,11 @@ def serve_phase(torch, ops, dev, arch, label):
 
     # each prefill MoE layer's experts beside its admission's prompt rows
     # (the rest of the bucketed prefill is right-padding), for the drop split
-    prompt_rows, prefill_routes = [0], []
+    prompt_rows, prefill_routes, admitted = [0], [], []
 
     def admit(slot_idx, req):
         prompt_rows[0] = len(req.prompt) - 1
+        admitted.append(prompt_rows[0])
         return engine_admit(slot_idx, req)
 
     def routed(*args, **kw):
@@ -1835,8 +2011,9 @@ def serve_phase(torch, ops, dev, arch, label):
     attn_ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in attn_events.items()}
     new_tokens = sum(len(v) for v in out.values())
     admissions = len(prefill_ms)
-    line = {"phase": label, "arch": cfg.name, "dtype": cfg.dtype,
-            "params": cfg.param_count(), "layers": cfg.num_layers, "slots": SERVE_SLOTS,
+    line = {"phase": label, "arch": cfg.name, "family": cfg.family, "dtype": cfg.dtype,
+            "params": cfg.param_count(), "layers": cfg.num_layers,
+            "attention_layers": attn_layers, "slots": SERVE_SLOTS,
             "max_len": SERVE_MAX_LEN,
             "requests": len(out), "prompt_tokens": sum(len(r.prompt) for r in reqs),
             "prefill_tokens": engine.prefill_tokens, "decode_tokens": engine.decode_tokens,
@@ -1857,6 +2034,10 @@ def serve_phase(torch, ops, dev, arch, label):
             "flash_decode_launches": counts["flash_attention_decode"], "launches": counts,
             "logits_finite": bool(finite[0])}
     moe_layers = sum(cfg.num_experts > 0 and l >= cfg.first_k_dense for l in range(cfg.num_layers))
+    if cfg.ssm_state:
+        line["prefill_by_admission"] = [
+            {"tokens": n, "chunk": _pick_chunk(n, cfg.ssm_chunk), "ms": ms}
+            for n, ms in zip([n for n in admitted if n > 0], prefill_ms)]
     if moe_layers:
         line.update({"moe_layers": moe_layers,
                      "moe_ms_in_prefill": sum(a.elapsed_time(b) for a, b in moe_events["prefill"]),
@@ -1871,13 +2052,14 @@ def serve_phase(torch, ops, dev, arch, label):
     require(all(len(v) == SERVE_NEW_TOKENS for v in out.values()),
             f"{label}: a request ended short of its new tokens")
     require(line["logits_finite"], f"{label}: a logit is not finite")
-    require(counts["flash_attention"] == cfg.num_layers * (admissions + engine.steps),
-            f"{label}: {counts['flash_attention']} flash launches != {cfg.num_layers} x "
+    require(counts["flash_attention"] == attn_layers * (admissions + engine.steps),
+            f"{label}: {counts['flash_attention']} flash launches != {attn_layers} x "
             f"({admissions} prefills + {engine.steps} decode waves)")
-    require(counts["flash_attention_prefill"] == cfg.num_layers * admissions
-            and counts["flash_attention_decode"] == cfg.num_layers * engine.steps,
+    require(counts["flash_attention_prefill"] == attn_layers * admissions
+            and counts["flash_attention_decode"] == attn_layers * engine.steps,
             f"{label}: prefill / decode kernel launches {counts['flash_attention_prefill']} / "
-            f"{counts['flash_attention_decode']}, not layers x prefills / layers x waves")
+            f"{counts['flash_attention_decode']}, not {attn_layers} attention layers x prefills "
+            f"/ x waves")
     require(counts["bucket_hist"] == moe_layers * (admissions + engine.steps),
             f"{label}: {counts['bucket_hist']} bucket_hist launches != {moe_layers} MoE layers "
             f"x ({admissions} prefills + {engine.steps} decode waves)")
@@ -1887,8 +2069,142 @@ def serve_phase(torch, ops, dev, arch, label):
         require(recount == line["dropped_prefill"],
                 f"{label}: {line['dropped_prefill']} prefill drops, {recount} recounted from the "
                 f"routes")
-    serve_trace(torch, engine, cfg)
+    if cfg.family == "ssm":
+        chunk_cost(torch, engine, dev)
+    serve_trace(torch, engine, cfg, events)
     del engine, params
+    return counts
+
+
+def chunk_cost(torch, engine, dev):
+    """One admission's prefill (one slot, the engine's api and parameters)
+    at each of CHUNK_COST_LENGTHS prompt tokens: the median of 3 CUDA-event
+    times, beside the SSD chunk the reference's `_pick_chunk` gives that
+    length (a prime length above 256 gives chunks of 1: one step of the
+    inter-chunk loop per position and layer)."""
+    from repro_torch.models.ssm import _pick_chunk
+
+    cfg, api, params = engine.cfg, engine.api, engine.params
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    rows = []
+    for S in CHUNK_COST_LENGTHS:
+        tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=g, device=dev,
+                               dtype=torch.int32)
+        ms = []
+        for _ in range(3):
+            cache = api.init_cache(cfg, 1, S, dev)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            api.prefill(cfg, params, {"tokens": tokens}, cache)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        Q = _pick_chunk(S, cfg.ssm_chunk)
+        rows.append({"tokens": S, "chunk": Q, "chunks": S // Q, "ms": statistics.median(ms)})
+    emit({"phase": "chunk_cost", "arch": cfg.name, "layers": cfg.num_layers, "admissions": rows})
+
+
+def generate_phase(torch, ops, dev, arch, label):
+    """`arch` (encdec or vlm) at full width and depth, bf16, seeded random
+    weights on the card, through `prefill` and `decode_step`, its family's
+    only entry points in the reference (whose Engine does not take it):
+    encdec ENCDEC_BATCH sequences of ENCDEC_FRAMES encoder frames and an
+    ENCDEC_PROMPT-token decoder prompt, vlm VLM_BATCH sequences of the
+    config's image tokens and VLM_TEXT text tokens (`input_specs`' random
+    embeddings: the frontends are stubs, as in the reference); then
+    GEN_STEPS greedy decode steps.  CUDA-event ms of encode + prefill and of
+    each decode step, launch counts set to 0 just before and read just
+    after, every logit finite, every token in the vocabulary, the flash
+    launches: a prefill runs the prefill kernel once per attention call
+    (encdec: encoder self-attention, decoder self- and cross-attention;
+    vlm: each layer), a decode step the decode kernel (encdec: self and
+    cross; vlm: each layer).  The prefill's last logits are held to a
+    forward without a cache over the same batch (PARITY_BF16_TOL).
+    Returns the launch counts of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, init_all, input_specs
+
+    cfg = get_config(arch)
+    api = get_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = init_all(cfg, seed=SERVE_SEED, device=dev)
+    if cfg.family == "encdec":
+        B = ENCDEC_BATCH
+        batch = input_specs(cfg, "prefill", B, ENCDEC_FRAMES, seed=SERVE_SEED, device=dev)
+        batch["tokens"] = batch["tokens"][:, :ENCDEC_PROMPT].contiguous()
+        prompt = ENCDEC_PROMPT
+        prefill_calls, decode_calls = cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    else:
+        B = VLM_BATCH
+        batch = input_specs(cfg, "prefill", B, cfg.num_image_tokens + VLM_TEXT, seed=SERVE_SEED,
+                            device=dev)
+        prompt = cfg.num_image_tokens + VLM_TEXT
+        prefill_calls = decode_calls = cfg.num_layers
+    cache = api.init_cache(cfg, B, prompt + GEN_STEPS, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+
+    def pair():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    ops.reset_launches()
+    t = time.perf_counter()
+    a, b = pair()
+    a.record()
+    logits, cache = api.prefill(cfg, params, batch, cache)
+    b.record()
+    prefill_events, decode_events = (a, b), []
+    finite = torch.isfinite(logits).all()
+    tokens = [logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+    for _ in range(GEN_STEPS):
+        a, b = pair()
+        a.record()
+        logits, cache = api.decode_step(cfg, params, tokens[-1], cache)
+        b.record()
+        decode_events.append((a, b))
+        finite = finite & torch.isfinite(logits).all()
+        tokens.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(ops.LAUNCHES)
+    prefill_ms = prefill_events[0].elapsed_time(prefill_events[1])
+    decode_ms = [a.elapsed_time(b) for a, b in decode_events]
+    generated = torch.cat(tokens, dim=1)
+    in_vocab = bool(((generated >= 0) & (generated < cfg.vocab_size)).all())
+    peak = torch.cuda.max_memory_allocated(dev)
+    first = api.prefill(cfg, params, batch, api.init_cache(cfg, B, prompt, dev))[0][:, -1]
+    full = api.forward(cfg, params, batch)[0][:, -1]
+    forward_err = float((first - full).abs().max())
+    line = {"phase": label, "arch": cfg.name, "family": cfg.family, "dtype": cfg.dtype,
+            "params": cfg.param_count(), "layers": cfg.num_layers,
+            "encoder_layers": cfg.encoder_layers, "batch": B, "prompt_tokens": prompt,
+            "encoder_frames": ENCDEC_FRAMES if cfg.family == "encdec" else 0,
+            "image_tokens": cfg.num_image_tokens, "decode_steps": GEN_STEPS,
+            "setup_s": setup_s, "wall_s": wall, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": statistics.mean(decode_ms),
+            "decode_ms_per_step_median": statistics.median(decode_ms),
+            "decode_tokens_per_s": B * GEN_STEPS / (sum(decode_ms) / 1e3),
+            "peak_bytes": peak, "peak_gib": peak / 2**30,
+            "flash_launches": counts["flash_attention"],
+            "flash_prefill_launches": counts["flash_attention_prefill"],
+            "flash_decode_launches": counts["flash_attention_decode"],
+            "logits_finite": bool(finite), "tokens_in_vocab": in_vocab,
+            "prefill_vs_forward_max_abs": forward_err, "tolerance": PARITY_BF16_TOL,
+            "tokens_first_sequence": generated[0, :16].tolist()}
+    emit(line)
+    require(line["logits_finite"], f"{label}: a logit is not finite")
+    require(in_vocab, f"{label}: a generated token is outside the vocabulary")
+    require(forward_err <= PARITY_BF16_TOL,
+            f"{label}: prefill's last logits differ from forward's by {forward_err}")
+    require(counts["flash_attention_prefill"] == prefill_calls
+            and counts["flash_attention_decode"] == decode_calls * GEN_STEPS
+            and counts["flash_attention"] == prefill_calls + decode_calls * GEN_STEPS,
+            f"{label}: flash launches {counts['flash_attention_prefill']} prefill / "
+            f"{counts['flash_attention_decode']} decode, want {prefill_calls} / "
+            f"{decode_calls} x {GEN_STEPS}")
+    del params, cache, batch
     return counts
 
 
@@ -1912,23 +2228,30 @@ def _prefill_drop_split(torch, routes, E):
     return {"dropped_prefill_prompt_rows": prompt, "dropped_prefill_padding_rows": padding}
 
 
-def serve_trace(torch, engine, cfg):
-    """A short window of the same engine under torch.profiler (8 requests of
-    512 prompt tokens, 32 new tokens): the card's busy share (kernel and copy
+def serve_trace(torch, engine, cfg, events):
+    """A short window of the same engine under torch.profiler (one request
+    of 512 prompt tokens and 32 new tokens a slot; the card's activity only,
+    which keeps the profiler's processing on the host short: the line's
+    "seconds" against "wall_ms"): the card's busy share (kernel and copy
     time over the window's wall time; the profiler's own host cost makes the
-    idle share an upper bound) and the device time by kernel."""
+    idle share an upper bound), the device time by kernel, and the window's
+    prefills and decode waves with their CUDA-event ms (`events`: the
+    engine's timed prefill and decode_step append to it)."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     reqs = _serve_requests(SERVE_SLOTS, cfg.vocab_size, np.random.default_rng(SERVE_SEED + 1),
                            (TRACE_PROMPT, TRACE_PROMPT), TRACE_NEW_TOKENS, ())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before = {kind: len(v) for kind, v in events.items()}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         engine.run(reqs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    # device-side rows only (kernels, copies): an operator's row repeats its kernels' time
+    window = {kind: [a.elapsed_time(b) for a, b in v[before[kind]:]] for kind, v in events.items()}
+    # device-side rows only (kernels, copies)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(ms for _, ms, _ in rows)
@@ -1936,8 +2259,11 @@ def serve_trace(torch, engine, cfg):
     rows.sort(key=lambda r: -r[1])
     emit({"phase": "serve_trace", "arch": cfg.name, "requests": len(reqs),
           "prompt_tokens": TRACE_PROMPT,
-          "new_tokens": TRACE_NEW_TOKENS,
+          "new_tokens": TRACE_NEW_TOKENS, "prefills": len(window["prefill"]),
+          "decode_waves": len(window["decode"]), "prefill_ms": sum(window["prefill"]),
+          "decode_ms": sum(window["decode"]),
           "wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+          "seconds": time.perf_counter() - t0,
           "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:10]]})
 
 

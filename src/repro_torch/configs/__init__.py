@@ -1,4 +1,5 @@
-"""The dense and MoE architectures the port serves (copies of `repro/configs`).
+"""The architectures of the port (copies of `repro/configs`): dense, moe, ssm,
+hybrid, encdec and vlm.
 
 `get_config(name)` gives the published configuration, `get_smoke_config`
 the reduced same-family one of the CPU tests.

@@ -1,9 +1,7 @@
 """Model configuration schema + registry (copy of `repro/configs/base.py`).
 
-The fields and the published configurations are the reference's; `jdtype`
-becomes `torch_dtype`.  The port serves the dense and moe families; the
-other architecture ids raise `NotImplementedError` naming the ROADMAP item
-that ports them.
+The fields and the published configurations of all ten architectures are
+the reference's; `jdtype` becomes `torch_dtype`.
 """
 
 from __future__ import annotations
@@ -139,13 +137,10 @@ _ARCH_MODULES = {
     "internlm2-1.8b": "internlm2_1p8b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
-}
-# the reference's other architectures, and the ROADMAP.md item that ports each
-NOT_PORTED = {
-    "mamba2-780m": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
-    "zamba2-2.7b": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
-    "seamless-m4t-large-v2": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
-    "llava-next-mistral-7b": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
+    "mamba2-780m": "mamba2_780m",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
 
@@ -154,8 +149,6 @@ def arch_ids():
 
 
 def _module(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md {NOT_PORTED[name]}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {arch_ids()}")
     return importlib.import_module(f".{_ARCH_MODULES[name]}", __package__)

@@ -6,8 +6,13 @@
 //
 // out[b,h,i] = sum_j softmax_j(scale * q[b,h,i].k[b,h/g,j]) v[b,h/g,j] over the
 // unmasked j (causal: j <= offset[b] + i; j < Skv always), q and k DK wide, v
-// and out DV wide: DK = DV in {16, 32, 64, 128}, or MLA's (192, 128), whose
-// queries and keys carry a 64-wide rope part the values lack.  Online softmax in
+// and out DV wide: DK = DV in {16, 32, 64, 80, 128}, or MLA's (192, 128), whose
+// queries and keys carry a 64-wide rope part the values lack.  80 (zamba2's
+// heads) is the one width that is no power of two and no multiple of 64: the
+// decode kernel reads its 10 (bf16) or 20 (f32) 16-byte vectors a row in a
+// main part of 8 or 16 and a tail of 2 or 4, and gives its last 16 output
+// columns to lanes 0-15; the prefill kernel pads it to 128 in shared memory
+// (see there).  Online softmax in
 // exp2 units with the running max, sum and accumulator in f32 registers; a
 // row with every position masked gives 0, as the TPU kernel's finalize does.
 // In both kernels one block serves all g = Hq/Hkv query heads of its kv head
@@ -39,7 +44,10 @@
 //   data, and K/V stay in their own type (bf16) in shared memory, converted
 //   as they are read.  In the score loop lane j owns key j and reads its
 //   16-byte vectors in lane-rotated order, so the 8 lanes of a shared-memory
-//   wavefront hit distinct banks; in P V lane j owns DV/32 output columns.
+//   wavefront hit distinct banks (a row of 10 or 20 vectors: the first 8 or
+//   16 rotated so, then the 2 or 4 left in an order that spreads the 8 lanes
+//   over the bank groups too); in P V lane j owns DV/32 output columns, and
+//   at DV 80 lanes 0-15 also one of the last 16.
 //   The launcher splits the keys into chunks so that about 4 blocks per SM
 //   would exist for full caches; blocks past a slot's frontier return before
 //   loading anything, and the last block of a (slot, kv head, query tile) to
@@ -47,7 +55,7 @@
 //   merges the chunks that saw keys: no second launch.
 //
 // * flash_attention_prefill_kernel: bf16 with Sq >= 16 and (DK, DV) in
-//   {(64, 64), (128, 128), (192, 128)}.  Bound by the tensor cores (2 (DK +
+//   {(64, 64), (80, 80), (128, 128), (192, 128)}.  Bound by the tensor cores (2 (DK +
 //   DV) Hq operations per visible pair at 989 TFLOP/s).  Both products run
 //   as wgmma m64nNk16 (bf16 in, f32 accumulate): S = Q K^T with Q and K in
 //   shared memory (K-major), and O += P V with P in registers (S's
@@ -62,7 +70,12 @@
 //   Tiles past the frontier are never loaded, only tiles that cross the
 //   diagonal or Skv compute a mask, and the blocks of the latest query tiles
 //   (the most keys) are scheduled first.  Q rows past Sq are zero-filled by
-//   TMA and never stored; keys past Skv are zero-filled and masked.
+//   TMA and never stored; keys past Skv are zero-filled and masked.  A width
+//   that is no multiple of 64 (80) is padded to whole 64-column boxes (128):
+//   TMA's out-of-bounds fill writes zeros into q and k columns 80-127, which
+//   S's k-steps (DK / 16 = 5) never read, and into v's, which give output
+//   columns 80-127 that are never stored.  So P V runs as at 128 (the
+//   work at width 80 is what the bound counts).
 //
 // Plain C entry point (bound with ctypes): launches on the caller's stream,
 // allocates nothing, returns cudaGetLastError().
@@ -337,10 +350,23 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               int splits, int chunk, int causal, float scale_log2) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));   // elements of a 16-byte vector
   constexpr int kVecs = DK / kVec;                          // vectors of a q or k row
-  constexpr int kCols = DV >= 32 ? DV / 32 : 1;             // output columns of a lane
-  // the lane rotation below keeps 8 lanes on 8 distinct 16-byte bank groups
-  static_assert(kVecs % 8 == 0 || (kVecs & (kVecs - 1)) == 0, "DK / kVec: 2^n or 8 n");
+  // The lane rotation below keeps the 8 lanes of a wavefront on 8 distinct
+  // 16-byte bank groups: over all kVecs vectors when kVecs is a power of two
+  // or a multiple of 8, else over the first kMain (a multiple of 8), and the
+  // kTail (2 or 4) left are read in an order that does the same.
+  constexpr int kTail = (kVecs % 8 == 0 || (kVecs & (kVecs - 1)) == 0) ? 0 : kVecs % 8;
+  constexpr int kMain = kVecs - kTail;
+  static_assert(DK % kVec == 0 && (kTail == 0 || (kMain >= 8 && (kTail == 2 || kTail == 4))),
+                "DK / kVec: 2^n, 8 n, or 8 n + 2 or + 4 with n >= 1");
+  constexpr int kCols = DV >= 32 ? DV / 32 : 1;             // contiguous output columns of a lane
+  // the last DV % 32 columns (DV > 32): column kCols * 32 + lane for lanes below
+  constexpr int kTailCols = DV > 32 ? DV % 32 : 0;
+  constexpr int kAcc = kCols + (kTailCols > 0 ? 1 : 0);     // accumulators of a row
+  static_assert(DV <= 32 ? (DV & (DV - 1)) == 0 : DV % 2 == 0, "DV: 2^n up to 32, or even");
   static_assert(R <= dec_max_rows(DK) && (R & (R - 1)) == 0, "R: a power of two up to 16");
+  // the warps' partial results fit in the rings they replace
+  static_assert(kDecWarps * R * (DV + 2) * 4 <=
+                kDecStages * kDecKeys * (DK + DV) * static_cast<int>(sizeof(T)), "w_acc");
   extern __shared__ __align__(128) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);                 // [stages][keys][DK]
   T* vs = ks + kDecStages * kDecKeys * DK;            // [stages][keys][DV]
@@ -384,7 +410,7 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  float m[R], l[R], acc[R][kCols];
+  float m[R], l[R], acc[R][kAcc];
   int qpos[R];   // the last key a row sees
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -392,8 +418,9 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[r] = 0.f;
     qpos[r] = r < nrows ? (causal ? offset + q0 + r % nq : Skv) : -1;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < kAcc; ++c) acc[r][c] = 0.f;
   }
+  const int tcol = kCols * 32 + min(lane, kTailCols > 0 ? kTailCols - 1 : 0);   // tail column
 
   if (warp == kDecWarps) {
     // producer: keeps up to kDecStages tiles in flight ahead of the warps
@@ -426,9 +453,7 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) sc[r] = 0.f;
-#pragma unroll 2
-      for (int step = 0; step < kVecs; ++step) {
-        const int c = (step + lane) % kVecs;
+      auto dot_vector = [&](const int c) {   // sc[r] += q[r] . k[lane] over vector c
         float kf[kVec];
         unpack16(kt + lane * DK + c * kVec, kf);
 #pragma unroll
@@ -440,6 +465,15 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int e = 0; e < kVec; ++e) sc[r] = fmaf(qf[e], kf[e], sc[r]);
           }
         }
+      };
+#pragma unroll 2
+      for (int step = 0; step < kMain; ++step) dot_vector((step + lane) % kMain);
+      if constexpr (kTail > 0) {
+        // the row stride is kTail (mod 8) bank groups: lanes i and i + 8 / kTail
+        // of a wavefront start on the same group, so they take other vectors
+#pragma unroll
+        for (int step = 0; step < kTail; ++step)
+          dot_vector(kMain + ((lane & 7) / (8 / kTail) + step) % kTail);
       }
 
       // online softmax of each row over the tile's keys; a dead row sees none
@@ -456,19 +490,23 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l[r] = alpha * l[r] + warp_sum(p);
         m[r] = m_new;
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
+        for (int c = 0; c < kAcc; ++c) acc[r][c] *= alpha;
         pw[r * kDecKeys + lane] = p;
       }
       __syncwarp();
 
-      // P V: lane owns columns [lane * kCols, +kCols); only the nk loaded keys
+      // P V: lane owns columns [lane * kCols, +kCols) and, with a tail, column
+      // tcol (lanes past the tail repeat its last column and never store it);
+      // only the nk loaded keys
       if (lane * kCols < DV) {
         int j = 0;
         for (; j + 4 <= nk; j += 4) {
-          float vf[4][kCols];
+          float vf[4][kCols], vx[4][1];   // vx: the tail column
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
+          for (int jj = 0; jj < 4; ++jj) {
             load_cols<kCols>(vt + (j + jj) * DV + lane * kCols, vf[jj]);
+            if constexpr (kTailCols > 0) load_cols<1>(vt + (j + jj) * DV + tcol, vx[jj]);
+          }
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             if (r < nrows) {
@@ -480,18 +518,26 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 acc[r][c] = fmaf(p4.z, vf[2][c], acc[r][c]);
                 acc[r][c] = fmaf(p4.w, vf[3][c], acc[r][c]);
               }
+              if constexpr (kTailCols > 0) {
+                acc[r][kCols] = fmaf(p4.x, vx[0][0], acc[r][kCols]);
+                acc[r][kCols] = fmaf(p4.y, vx[1][0], acc[r][kCols]);
+                acc[r][kCols] = fmaf(p4.z, vx[2][0], acc[r][kCols]);
+                acc[r][kCols] = fmaf(p4.w, vx[3][0], acc[r][kCols]);
+              }
             }
           }
         }
         for (; j < nk; ++j) {
-          float vf[kCols];
+          float vf[kCols], vx[1];
           load_cols<kCols>(vt + j * DV + lane * kCols, vf);
+          if constexpr (kTailCols > 0) load_cols<1>(vt + j * DV + tcol, vx);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             if (r < nrows) {
               const float pj = pw[r * kDecKeys + j];
 #pragma unroll
               for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(pj, vf[c], acc[r][c]);
+              if constexpr (kTailCols > 0) acc[r][kCols] = fmaf(pj, vx[0], acc[r][kCols]);
             }
           }
         }
@@ -510,6 +556,9 @@ flash_attention_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int c = 0; c < kCols; ++c)
             w_acc[(warp * R + r) * DV + lane * kCols + c] = acc[r][c];
+        }
+        if constexpr (kTailCols > 0) {
+          if (lane < kTailCols) w_acc[(warp * R + r) * DV + tcol] = acc[r][kCols];
         }
         if (lane == 0) {
           w_ml[2 * (warp * R + r)] = m[r];
@@ -597,10 +646,15 @@ constexpr int kPreConsumers = 2;                           // consumer warpgroup
 constexpr int kPreThreads = kPreConsumers * 128 + 32;      // and one producer warp
 constexpr int kSwzCols = 64;                               // bf16 of one 128-byte swizzle row
 
+// a width padded to whole 64-column boxes
+__host__ __device__ constexpr int pad64(int D) { return (D + kSwzCols - 1) / kSwzCols * kSwzCols; }
+
 template <int DK, int DV>
 constexpr int prefill_smem_bytes() {
-  // 1024 of alignment slack, the Q tiles, the K and V rings, the barriers
-  return 1024 + kPreConsumers * DK * kPreRows * 2 + kPreStages * (DK + DV) * kPreKeys * 2 +
+  // 1024 of alignment slack, the Q tiles, the K and V rings (widths padded
+  // to whole boxes), the barriers
+  return 1024 + kPreConsumers * pad64(DK) * kPreRows * 2 +
+         kPreStages * (pad64(DK) + pad64(DV)) * kPreKeys * 2 +
          (kPreConsumers + 3 * kPreStages) * 8;
 }
 
@@ -608,9 +662,9 @@ constexpr int prefill_smem_bytes() {
 // tile, head in group) with the head fastest; block y = 0 takes the last
 // units.  The tensor maps view q as [B*Hq][Sq][DK], k as [B*Hkv][Skv][DK]
 // and v as [B*Hkv][Skv][DV] in boxes of 64 columns (one 128-byte swizzle
-// row) by 64 query rows or kPreKeys keys, so a tile of D columns is D/64
-// boxes, each a run of 8-row, 1024-byte swizzle atoms; out is
-// [B, Hq, Sq, DV].
+// row) by 64 query rows or kPreKeys keys, so a tile of D columns is
+// pad64(D)/64 boxes, each a run of 8-row, 1024-byte swizzle atoms (columns
+// past D read as zeros); out is [B, Hq, Sq, DV].
 template <int DK, int DV>
 __global__ void __launch_bounds__(kPreThreads, 1)
 flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -619,7 +673,10 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
                                __nv_bfloat16* __restrict__ out,
                                const int32_t* __restrict__ offsets, int offset_scalar, int Hq,
                                int Hkv, int Sq, int Skv, int causal, float scale_log2) {
-  constexpr int kSubK = DK / kSwzCols, kSubV = DV / kSwzCols;   // boxes across DK, DV
+  constexpr int kSubK = pad64(DK) / kSwzCols, kSubV = pad64(DV) / kSwzCols;   // boxes
+  constexpr int kPadV = pad64(DV);                                 // P V's width
+  // S's k-steps read DK / 16 columns; P V runs as m64n64 or m64n128
+  static_assert(DK % 16 == 0 && DV % 8 == 0 && (kPadV == 64 || kPadV == 128), "DK, DV");
   constexpr int kQBox = kPreRows * 128, kKVBox = kPreKeys * 128;
   constexpr int kQBytes = kSubK * kQBox, kKBytes = kSubK * kKVBox, kVBytes = kSubV * kKVBox;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -694,9 +751,9 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg_lo = causal ? min(Skv - 1, offset + q0) : Skv - 1;
   const int wg_hi = causal ? min(Skv - 1, offset + q0 + kPreRows - 1) : Skv - 1;
 
-  float o[DV / 2];
+  float o[kPadV / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kPadV / 2; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;   // log2 units; l per thread
   const unsigned char* qt = qs + wg * kQBytes;
   mbar_wait(&q_full[wg], 0);
@@ -767,7 +824,7 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
       l0 = a0 * l0 + sum0;
       l1 = a1 * l1 + sum1;
 #pragma unroll
-      for (int i = 0; i < DV / 8; ++i) {
+      for (int i = 0; i < kPadV / 8; ++i) {
         o[4 * i] *= a0;
         o[4 * i + 1] *= a0;
         o[4 * i + 2] *= a1;
@@ -784,13 +841,13 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       }
 
-      // O += P V: V [keys][DV] is the MN-major B; 16 keys = 2 atoms of 8 rows
+      // O += P V: V [keys][kPadV] is the MN-major B; 16 keys = 2 atoms of 8 rows
       mbar_wait(&v_full[s], phase);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kPreKeys / 16; ++kk) {
         const uint64_t db = gmma_desc(vt + kk * 16 * 128, kKVBox, 1024);
-        if constexpr (DV == 128) {
+        if constexpr (kPadV == 128) {
           wgmma_rs_n128(o, pa[kk], db);
         } else {
           wgmma_rs_n64(o, pa[kk], db);
@@ -814,8 +871,9 @@ flash_attention_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   __nv_bfloat16* oh = out + (static_cast<int64_t>(b) * Hq + h) * Sq * DV;
 #pragma unroll
-  for (int i = 0; i < DV / 8; ++i) {
+  for (int i = 0; i < kPadV / 8; ++i) {
     const int col = 8 * i + 2 * (lane % 4);
+    if (col >= DV) continue;   // a padded column (DV is even: col + 1 < DV too)
     if (r0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(oh + static_cast<int64_t>(r0) * DV + col) =
           __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
@@ -950,6 +1008,7 @@ int launch_decode_d(const void* q, const void* k, const void* v, void* out, floa
     case 16: return launch_decode_r<T, 16, 16>(DECODE_ARGS);
     case 32: return launch_decode_r<T, 32, 32>(DECODE_ARGS);
     case 64: return launch_decode_r<T, 64, 64>(DECODE_ARGS);
+    case 80: return launch_decode_r<T, 80, 80>(DECODE_ARGS);
     case 128: return launch_decode_r<T, 128, 128>(DECODE_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -963,8 +1022,8 @@ extern "C" {
 // dtype: 0 float32, 1 bfloat16.  offsets: device int32 [B], or null to use
 // offset_scalar for every sequence.
 // D is the width of q and k, Dv that of v and out: D = Dv in {16, 32, 64,
-// 128}, or (192, 128).
-// prefill = 1 (bf16, Sq >= 16, (D, Dv) in {(64, 64), (128, 128), (192, 128)},
+// 80, 128}, or (192, 128).
+// prefill = 1 (bf16, Sq >= 16, (D, Dv) in {(64, 64), (80, 80), (128, 128), (192, 128)},
 // Skv >= 1): the wgmma kernel; bq, splits, chunk and the scratch are ignored.
 // prefill = 0: the decode kernel with bq queries per block ((Hq / Hkv) * bq
 // <= 16, or 8 at D 192) and the keys in `splits` chunks of `chunk` keys (a
@@ -989,6 +1048,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
                                       causal, scale_log2, s);
     if (D == 64 && Dv == 64)
       return launch_prefill<64, 64>(q, k, v, out, off, offset_scalar, B, Hq, Hkv, Sq, Skv,
+                                    causal, scale_log2, s);
+    if (D == 80 && Dv == 80)
+      return launch_prefill<80, 80>(q, k, v, out, off, offset_scalar, B, Hq, Hkv, Sq, Skv,
                                     causal, scale_log2, s);
     if (D == 192 && Dv == 128)
       return launch_prefill<192, 128>(q, k, v, out, off, offset_scalar, B, Hq, Hkv, Sq, Skv,

@@ -15,7 +15,8 @@ so k and v may be a layer's whole [B, Hkv, max_len, D] cache.  A row with
 every key masked gives 0, as the Pallas kernel does.
 
 The kernels (`csrc/attention_kernels.cu`) take f32 or bf16 with (D, Dv) in
-HEAD_DIMS: D = Dv in {16, 32, 64, 128}, and MLA's (192, 128).  bf16 with at
+HEAD_DIMS: D = Dv in {16, 32, 64, 80, 128} (80: zamba2's heads), and MLA's
+(192, 128).  bf16 with at
 least 16 queries and (D, Dv) in PREFILL_HEAD_DIMS, the pairs with D >= 64
 (prefill), runs the wgmma + TMA kernel; everything else (decode, f32, bf16
 with D < 64) runs the split-KV decode kernel, which takes any Sq.  That is
@@ -33,12 +34,13 @@ import torch
 
 from . import build
 
-HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))   # (D, Dv) of the kernels
+# (D, Dv) of the kernels
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 KERNEL_ROWS = 16                   # (query head, query) rows of one decode block
 DECODE_TILE_KEYS = 32              # keys of one decode tile (kDecKeys in the source)
 DECODE_BLOCKS_PER_SM = 4           # decode blocks per SM if every cache were full
 PREFILL_MIN_QUERIES = 16           # bf16 with this many queries takes the prefill kernel
-PREFILL_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # the prefill kernel's (D, Dv)
+PREFILL_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))   # the prefill kernel's (D, Dv)
 PLAIN_Q_CHUNK = 1024               # queries per chunk of the plain version (its memory bound)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Limits of `row_error` for the kernel against its plain version.  f32: the

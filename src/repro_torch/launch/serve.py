@@ -4,8 +4,9 @@ engine over a freshly initialised LM, fed a stream of random requests.
     PYTHONPATH=src python -m repro_torch.launch.serve [--device cpu]
 
 Takes the reference's arguments plus `--device` (default `cuda`); `--arch`
-names a dense or moe architecture (its smoke configuration is served), e.g.
-`--arch deepseek-v2-lite-16b --device cpu`.
+names an architecture of a family the engine serves, dense, moe, ssm or
+hybrid (its smoke configuration is served), e.g. `--arch mamba2-780m
+--device cpu` or `--arch zamba2-2.7b --device cpu`.
 """
 
 from __future__ import annotations

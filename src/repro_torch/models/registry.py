@@ -1,17 +1,15 @@
-"""Family -> model implementation dispatch (twin of `repro/models/registry.py`).
-
-The port serves the dense and moe families; the other families raise
-`NotImplementedError` naming the ROADMAP item that ports them.
-"""
+"""Family -> model implementation dispatch, and the random batches of a
+config (twin of `repro/models/registry.py`)."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import transformer
+from . import encdec, hybrid, ssm_lm, transformer, vlm
 from .nn import ParamFactory
 
 
@@ -23,21 +21,20 @@ class ModelApi(NamedTuple):
     decode_step: Callable
 
 
-_LM = ModelApi(transformer.init_params, transformer.forward, transformer.init_cache,
-               transformer.prefill, transformer.decode_step)
-_FAMILIES: Dict[str, ModelApi] = {"dense": _LM, "moe": _LM}
-_NOT_PORTED = {
-    "ssm": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
-    "hybrid": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
-    "encdec": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
-    "vlm": "queue 1 item 11c (ssm, hybrid, encdec and vlm)",
+def _api(module) -> ModelApi:
+    return ModelApi(module.init_params, module.forward, module.init_cache, module.prefill,
+                    module.decode_step)
+
+
+_FAMILIES: Dict[str, ModelApi] = {
+    "dense": _api(transformer), "moe": _api(transformer), "ssm": _api(ssm_lm),
+    "hybrid": _api(hybrid), "encdec": _api(encdec), "vlm": _api(vlm),
 }
 
 
 def get_model(cfg) -> ModelApi:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md {_NOT_PORTED[cfg.family]}")
+    if cfg.family not in _FAMILIES:
+        raise KeyError(f"unknown family {cfg.family!r}; known: {sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 
@@ -47,3 +44,44 @@ def init_all(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     api = get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return api.init_params(cfg, ParamFactory(gen, dev, cfg.torch_dtype))
+
+
+def input_specs(cfg, kind: str, batch: int, seq_len: int, seed: int = 0,
+                device="cuda") -> Dict[str, torch.Tensor]:
+    """A random batch for one (kind, batch, seq_len) shape, the numbers of the
+    reference's `input_specs(cfg, ShapeSpec(.., seq_len, batch, kind),
+    mode="init", seed=seed)`: drawn in the same order from numpy's generator
+    seeded with `seed` (tokens uniform in [0, vocab), embeddings normal x
+    0.02 in the config's dtype).
+
+    decode -> {tokens [B, 1]}; prefill -> {tokens} plus, for vlm,
+    patch_embeds [B, num_image_tokens, d] (tokens then [B, S - n_img]) and,
+    for encdec, enc_embeds [B, S, d]; train adds labels [B, S]."""
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"kind {kind!r}: train, prefill or decode")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    B, S, V = batch, seq_len, cfg.vocab_size
+
+    def ints(shape):
+        return torch.from_numpy(rng.integers(0, V, size=shape).astype(np.int32)).to(dev)
+
+    def floats(shape):
+        x = torch.from_numpy(rng.standard_normal(shape) * 0.02)
+        return x.to(dtype=cfg.torch_dtype).to(dev)
+
+    if kind == "decode":
+        return {"tokens": ints((B, 1))}
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.family == "vlm":
+        n_img = cfg.num_image_tokens
+        out["tokens"] = ints((B, S - n_img))
+        out["patch_embeds"] = floats((B, n_img, cfg.d_model))
+    elif cfg.family == "encdec":
+        out["tokens"] = ints((B, S))
+        out["enc_embeds"] = floats((B, S, cfg.d_model))
+    else:
+        out["tokens"] = ints((B, S))
+    if kind == "train":
+        out["labels"] = ints((B, S))
+    return out

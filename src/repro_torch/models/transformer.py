@@ -16,8 +16,10 @@ buffers in place (see `layers.py`).
 
 The MoE aux outputs (lb_loss, z_loss, dropped) are summed over the layers in
 f32, as the reference's `_accumulate` does; `forward` returns them, and
-prefill and decode drop them, as the reference's do.  The ssm, hybrid,
-encdec and vlm families are not ported and raise.
+prefill and decode drop them, as the reference's do.  `forward_embeds` and
+`prefill_embeds` start from embeddings instead of tokens (the vlm family
+puts its image patches before the token embeddings); `init_attention`,
+`init_mlp` and `zero_aux` serve the other families too.
 """
 
 from __future__ import annotations
@@ -35,18 +37,16 @@ from .nn import ParamFactory
 AUX_KEYS = ("lb_loss", "z_loss", "dropped")
 
 
-def check_ported(cfg) -> None:
-    if cfg.ssm_state or cfg.shared_attn_every or cfg.encoder_layers or cfg.num_image_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: ssm, hybrid, encdec and vlm are not ported yet "
-            f"(ROADMAP.md queue 1 item 11c)")
+def zero_aux(device) -> Dict[str, torch.Tensor]:
+    """The aux outputs of a model without MoE layers: f32 zeros."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
 
 
 def _is_moe_layer(cfg, layer: int) -> bool:
     return cfg.num_experts > 0 and layer >= cfg.first_k_dense
 
 
-def _init_attention(f: ParamFactory, cfg) -> Dict[str, Any]:
+def init_attention(f: ParamFactory, cfg) -> Dict[str, Any]:
     d, hd, Hq, Hkv = cfg.d_model, cfg.hd, cfg.num_heads, cfg.num_kv_heads
     attn = {
         "wq": f.param((d, Hq * hd)),
@@ -60,20 +60,23 @@ def _init_attention(f: ParamFactory, cfg) -> Dict[str, Any]:
     return attn
 
 
+def init_mlp(f: ParamFactory, cfg) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {"w_gate": f.param((d, cfg.d_ff)), "w_up": f.param((d, cfg.d_ff)),
+            "w_down": f.param((cfg.d_ff, d))}
+
+
 def _init_block(f: ParamFactory, cfg, moe: bool) -> Dict[str, Any]:
     d = cfg.d_model
     return {
         "ln1": {"scale": f.param((d,), "ones")},
         "ln2": {"scale": f.param((d,), "ones")},
-        "attn": init_mla(f, cfg) if cfg.kv_lora_rank else _init_attention(f, cfg),
-        "ffn": init_moe(f, cfg) if moe else {
-            "w_gate": f.param((d, cfg.d_ff)), "w_up": f.param((d, cfg.d_ff)),
-            "w_down": f.param((cfg.d_ff, d))},
+        "attn": init_mla(f, cfg) if cfg.kv_lora_rank else init_attention(f, cfg),
+        "ffn": init_moe(f, cfg) if moe else init_mlp(f, cfg),
     }
 
 
 def init_params(cfg, f: ParamFactory) -> Dict[str, Any]:
-    check_ported(cfg)
     return {
         "embed": {"tokens": f.param((cfg.vocab_padded, cfg.d_model), "embed", scale=0.02)},
         "blocks": [_init_block(f, cfg, _is_moe_layer(cfg, l)) for l in range(cfg.num_layers)],
@@ -100,7 +103,7 @@ def _block(p, cfg, x, positions, cache, moe: bool):
 
 def _layers(cfg, params, x, positions, cache=None):
     """Every layer in turn; returns (x, aux summed over the MoE layers)."""
-    total = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
+    total = zero_aux(x.device)
     for l, p_l in enumerate(params["blocks"]):
         layer = None
         if cache is not None:
@@ -112,24 +115,26 @@ def _layers(cfg, params, x, positions, cache=None):
     return x, total
 
 
-def _logits(cfg, params, x):
+def final_logits(cfg, params, x):
+    """ln_f, then the f32 unembedding with the vocabulary padding masked."""
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return unembed(params["unembed"], x, fp32=cfg.logits_fp32, valid_vocab=cfg.vocab_size)
 
 
+def forward_embeds(cfg, params, x):
+    """Forward without a cache from embeddings x [B, S, d] -> (logits [B, S, V], aux)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _layers(cfg, params, x, positions)
+    return final_logits(cfg, params, x), aux
+
+
 def forward(cfg, params, batch):
     """Forward without a cache: tokens [B, S] -> (logits [B, S, V], aux)."""
-    check_ported(cfg)
-    tokens = batch["tokens"]
-    x = embed(params["embed"], tokens).to(cfg.torch_dtype)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x, aux = _layers(cfg, params, x, positions)
-    return _logits(cfg, params, x), aux
+    return forward_embeds(cfg, params, embed(params["embed"], batch["tokens"]).to(cfg.torch_dtype))
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, torch.Tensor]:
     """Decode cache of all L layers, zeros, length 0 (0-d int32)."""
-    check_ported(cfg)
     dev = resolve_device(device)
     L = cfg.num_layers
     if cfg.kv_lora_rank:
@@ -143,24 +148,29 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, torch.
     return cache
 
 
-def _run_with_cache(cfg, params, tokens, cache, positions, last_only: bool):
-    check_ported(cfg)
-    x = embed(params["embed"], tokens).to(cfg.torch_dtype)
+def _run_with_cache(cfg, params, x, cache, positions, last_only: bool):
+    S = x.shape[1]
     x, _ = _layers(cfg, params, x, positions, cache)
     if last_only:
         x = x[:, -1:]  # unembed only the sampled position
-    new_cache = dict(cache, length=cache["length"] + tokens.shape[1])
-    return _logits(cfg, params, x), new_cache
+    return final_logits(cfg, params, x), dict(cache, length=cache["length"] + S)
+
+
+def prefill_embeds(cfg, params, x, cache):
+    """The prompt's embeddings x [B, S, d] into an empty cache.  Returns
+    (last-position logits [B, 1, V], cache)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    return _run_with_cache(cfg, params, x, cache, positions, last_only=True)
 
 
 def prefill(cfg, params, batch, cache):
     """Process the prompt, filling the cache.  Returns (last-token logits [B,1,V], cache)."""
-    tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    return _run_with_cache(cfg, params, tokens, cache, positions, last_only=True)
+    x = embed(params["embed"], batch["tokens"]).to(cfg.torch_dtype)
+    return prefill_embeds(cfg, params, x, cache)
 
 
 def decode_step(cfg, params, tokens, cache):
     """One token per sequence.  tokens [B, 1].  Returns (logits [B, 1, V], cache)."""
     positions = decode_positions(cache["length"], tokens.shape[1])
-    return _run_with_cache(cfg, params, tokens, cache, positions, last_only=False)
+    x = embed(params["embed"], tokens).to(cfg.torch_dtype)
+    return _run_with_cache(cfg, params, x, cache, positions, last_only=False)

@@ -1,4 +1,5 @@
-"""Continuous-batching serving engine (twin of `repro/serve/engine.py`, dense and moe families).
+"""Continuous-batching serving engine (twin of `repro/serve/engine.py`): the
+dense, moe, ssm and hybrid families, the reference's list.
 
 Iteration-level scheduling on a fixed slot grid, as in the reference:
 
@@ -6,16 +7,19 @@ Iteration-level scheduling on a fixed slot grid, as in the reference:
     (an int32 [max_batch] tensor), so sequences of different lengths decode
     in one wave;
   * a finished slot is reused at once: the next waiting request's prompt is
-    prefilled into that slot's rows of the cache, zeroed first (the
-    reference prefills a fresh one-slot cache and splices it in; the cache's
-    batch dimension is explicit here, so the splice is a slice);
+    prefilled into that slot's rows of the cache, zeroed first, so K/V and
+    the conv and ssm states start from zero (the reference prefills a fresh
+    one-slot cache and splices it in; every cache leaf here has its batch
+    on dimension 1, so the splice is a slice);
   * prefill takes the first P-1 prompt tokens; the last one enters through
     the shared decode wave, which gives the logits of the first sampled
     token;
-  * prefill lengths are bucketed to powers of two (as the reference does to
-    bound recompilation): right-padding is safe because the slot's length
-    is reset to the true prompt length afterwards, and each decode writes
-    position `length` before it attends.
+  * for the attention families (dense, moe) prefill lengths are bucketed
+    to powers of two (as the reference does to bound recompilation):
+    right-padding is safe because the slot's length is reset to the true
+    prompt length afterwards, and each decode writes position `length`
+    before it attends.  SSM state integrates every token it sees, so the
+    ssm and hybrid families prefill at the exact length.
 
 Every decode wave runs all max_batch slots, idle ones included; their
 lengths grow past max_len and their cache writes clamp to the last position,
@@ -33,6 +37,8 @@ import torch
 from ..device import resolve_device
 from ..models.registry import get_model
 from .sampling import SamplingParams, sample
+
+SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -69,13 +75,17 @@ def _tokens(rows, device) -> torch.Tensor:
 class Engine:
     def __init__(self, cfg, params, *, max_batch: int = 8, max_len: int = 512,
                  bucket_prefill: bool = True, device="cuda"):
+        if cfg.family not in SUPPORTED_FAMILIES:
+            raise ValueError(f"Engine serves the families {SUPPORTED_FAMILIES}, "
+                             f"not {cfg.family!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.api = get_model(cfg)
         self.max_batch = max_batch
         self.max_len = max_len
-        self.bucket_prefill = bucket_prefill
+        # SSM state integrates pad tokens -> exact-length prefill there
+        self.bucket_prefill = bucket_prefill and cfg.family in ("dense", "moe")
         self.cache = _make_cache(cfg, max_batch, max_len, self.device)
         self.slots = [_Slot() for _ in range(max_batch)]
         self.waiting: List[Request] = []
@@ -111,7 +121,8 @@ class Engine:
         prompt = list(req.prompt)
         n_pre = len(prompt) - 1            # last prompt token goes through decode
         rows = slice(slot_idx, slot_idx + 1)
-        # every leaf's slot rows (batch axis 1 of [L, B, ...]; 0 of length [B])
+        # every leaf's slot rows (batch axis 1 of [L, B, ...] or [sites, B, ...];
+        # 0 of length [B])
         one = {name: buf[rows] if name == "length" else buf[:, rows]
                for name, buf in self.cache.items()}
         for buf in one.values():

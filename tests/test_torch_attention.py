@@ -11,7 +11,7 @@ inputs both sides draw with numpy from the same seeds:
     the plain version rounds them to bf16);
   * `repro.models.layers._chunked_attention`, the attention the serving path
     runs, with scalar and per-sequence [B] offsets (an idle slot's offset past
-    the buffer included), GQA groups 1 and 2, D 16 and 128, ragged Sq/Skv,
+    the buffer included), GQA groups 1 and 2, D 16, 80 (zamba2) and 128, ragged Sq/Skv,
     several query chunks: f32 2e-6, bf16 2e-2; and MLA's shapes, where v is
     narrower than q and k (the smoke's (24, 16), deepseek-v2's (192, 128)).
 
@@ -40,6 +40,12 @@ CHUNKED = {
     "query_chunks": (1, 4, 2, 1280, 1280, 16, None, True, "float32", 256),
     "non_causal_ragged": (1, 4, 2, 7, 19, 16, None, False, "float32", 1024),
     "decode_bf16": (2, 16, 8, 1, 300, 128, [10, 250], True, "bfloat16", 1024),
+    # zamba2's 80-wide heads (MHA)
+    "d80_prefill_into_cache": (1, 4, 4, 37, 100, 80, 0, True, "float32", 1024),
+    "d80_decode_per_slot": (3, 4, 4, 1, 64, 80, [0, 30, 70], True, "float32", 1024),
+    "d80_query_chunks": (1, 2, 2, 640, 640, 80, None, True, "float32", 128),
+    "d80_non_causal": (1, 4, 4, 7, 19, 80, None, False, "float32", 1024),
+    "d80_bf16": (2, 8, 8, 5, 300, 80, [10, 250], True, "bfloat16", 1024),
 }
 # MLA: v of its own width Dv.  name: B, Hq, Hkv, Sq, Skv, D, Dv, offset, causal, dtype, q_chunk
 CHUNKED_MLA = {

@@ -7,8 +7,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (DECODE_BLOCKS_PER_SM, DECODE_TILE_KEYS,
-                                                 KERNEL_ROWS, flash_attention, kernel_rows,
-                                                 plan)
+                                                 HEAD_DIMS, KERNEL_ROWS, PREFILL_HEAD_DIMS,
+                                                 flash_attention, kernel_rows, plan)
 
 SMS = 132   # an H100 SXM
 
@@ -55,6 +55,30 @@ def test_mla_decode_rows_are_capped():
     assert plan(f32, 2, 16, 16, 16, 4096, 128, 128, SMS).bq == 16
 
 
+# zamba2's shared attention block: 32 heads of 80, each its own kv head
+@pytest.mark.parametrize("dtype,Sq,Skv,kernel", [
+    (bf16, 2048, 4096, "prefill"),   # an admission of serve_hybrid, at each of the 9 sites
+    (bf16, 16, 16, "prefill"),
+    (bf16, 15, 4096, "decode"),
+    (bf16, 1, 4096, "decode"),       # the decode wave
+    (f32, 2048, 4096, "decode"),
+])
+def test_plan_picks_the_kernel_d80(dtype, Sq, Skv, kernel):
+    assert (80, 80) in HEAD_DIMS and (80, 80) in PREFILL_HEAD_DIMS
+    assert plan(dtype, 8, 32, 32, Sq, Skv, 80, 80, SMS).kernel == kernel
+
+
+def test_decode_plan_of_the_hybrid_wave():
+    """zamba2's decode wave, 8 slots x 32 heads of 80: 16 rows a block at
+    D 80 (as at 128), one row per block here, 3 chunks of 1376 keys."""
+    assert kernel_rows(80) == KERNEL_ROWS
+    p = plan(bf16, 8, 32, 32, 1, 4096, 80, 80, SMS)
+    assert (p.kernel, p.bq, p.splits, p.chunk, p.groups, p.rows) == ("decode", 1, 3, 1376, 256, 1)
+    assert p.scratch_rows == 256 * 3 * 1
+    # f32 with 16 query heads per kv head fills a block's 16 rows
+    assert plan(f32, 1, 16, 1, 3, 700, 80, 80, SMS).rows == 16
+
+
 # B, Hq, Hkv, Sq, Skv, D
 DECODE_SHAPES = [
     (8, 16, 8, 1, 4096, 128),     # internlm2-1.8b's decode wave, 8 slots x 4096
@@ -64,6 +88,8 @@ DECODE_SHAPES = [
     (1, 2, 1, 1, 700, 32),
     (2, 16, 8, 1000, 1531, 128),  # f32 prefill: enough blocks without a split
     (64, 16, 8, 1, 64, 16),       # many short slots
+    (8, 32, 32, 1, 4096, 80),     # zamba2-2.7b's decode wave
+    (2, 16, 16, 5, 2000, 80),
     (1, 2, 1, 1, 0, 32),          # no key
 ]
 

@@ -107,7 +107,10 @@ def test_relabel_gather_kernel_matches_plain(cuda, base):
 # offsets > 0, non-causal, and with GQA group 5; bf16 prefill with D 16
 # takes the decode kernel; MLA's widths (q, k 192, v 128; D given as (D, Dv)):
 # the prefill kernel at an admission's shape and ragged, the decode wave,
-# f32 with 16 queries (two tiles of 8 rows).  Each output row is held to its error relative
+# f32 with 16 queries (two tiles of 8 rows); zamba2's 80-wide heads (10 or 20
+# vectors a q/k row, 16 tail columns in P V; the prefill kernel padded to 128):
+# its decode wave and prefill, ragged and non-causal, f32 with the key loop
+# split, GQA 4 at tile edges, 16 rows a block in f32.  Each output row is held to its error relative
 # to its own largest value, at flash_attention.TOLERANCE: f32 1e-5 (the sum
 # order differs); bf16 2^-6 (two bf16 ulps of the row's largest value).
 FLASH_CASES = {
@@ -134,6 +137,14 @@ FLASH_CASES = {
     "mla_prefill_ragged": (2, 16, 16, 100, 300, (192, 128), [0, 200], True, torch.bfloat16),
     "mla_decode_wave": (8, 16, 16, 1, 4096, (192, 128), "offsets", True, torch.bfloat16),
     "mla_f32_sq16": (2, 16, 16, 16, 700, (192, 128), [96, 684], True, torch.float32),
+    "d80_decode_wave": (8, 32, 32, 1, 4096, 80, "offsets", True, torch.bfloat16),
+    "d80_prefill": (1, 32, 32, 2048, 4096, 80, [0], True, torch.bfloat16),
+    "d80_prefill_ragged_g2": (2, 8, 4, 100, 300, 80, [0, 200], True, torch.bfloat16),
+    "d80_prefill_noncausal": (1, 4, 4, 100, 77, 80, None, False, torch.bfloat16),
+    "d80_f32_noncausal_ragged": (2, 8, 8, 37, 131, 80, None, False, torch.float32),
+    "d80_f32_split_kv": (2, 32, 32, 1, 3000, 80, [5, 2999], True, torch.float32),
+    "d80_decode_g4_edges": (4, 16, 4, 1, 1000, 80, [0, 31, 32, 999], True, torch.bfloat16),
+    "d80_f32_16_rows": (1, 16, 1, 3, 700, 80, [96], True, torch.float32),
 }
 
 
@@ -165,7 +176,8 @@ def test_flash_attention_kernel_matches_plain(cuda, name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["b_decode_wave", "decode_g5_idle", "prefill_cache_offset",
-                                  "mla_decode_wave", "mla_prefill"])
+                                  "mla_decode_wave", "mla_prefill", "d80_decode_wave",
+                                  "d80_prefill"])
 @pytest.mark.parametrize("fault", ["scale", "drop_last_keys"])
 def test_flash_attention_check_rejects_planted_faults(cuda, fault, name):
     """A decode wave or a prefill against the cache run with the softmax
@@ -182,7 +194,28 @@ def test_flash_attention_check_rejects_planted_faults(cuda, fault, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,Dv", [(24, 16), (192, 192), (128, 64)])
+@pytest.mark.parametrize("name", ["d80_decode_wave", "d80_prefill", "d80_f32_split_kv"])
+@pytest.mark.parametrize("fault", ["qk_first_64", "out_first_64"])
+def test_flash_attention_d80_check_rejects_a_64_column_kernel(cuda, fault, name):
+    """A kernel that kept 64-column atoms at width 80 would drop q.k columns
+    64-79 (the prefill's one 64-column box) or output columns 64-79 (the
+    decode kernel's 2 columns a lane): either fails the check."""
+    q, k, v, offset, causal = _flash_inputs(name, cuda)
+    want = ops.flash_attention_plain(q, k, v, causal=causal, offset=offset)
+    if fault == "qk_first_64":
+        q64 = q.clone()
+        q64[..., 64:] = 0
+        bad = ops.flash_attention(q64, k, v, causal=causal, offset=offset)
+    else:
+        head = ops.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                                   v[..., :64].contiguous(), causal=causal, offset=offset,
+                                   scale=80 ** -0.5)
+        bad = torch.cat([head, torch.zeros_like(want[..., 64:])], dim=-1)
+    assert row_error(bad, want) > TOLERANCE[q.dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(24, 16), (192, 192), (128, 64), (96, 96), (80, 64)])
 def test_flash_attention_kernel_rejects_other_widths(cuda, D, Dv):
     """The MLA smoke's (24, 16) and other pairs the kernels were not built
     for raise on the card; nothing gives way to the plain version."""

@@ -269,18 +269,3 @@ def test_forward_prefill_decode_match_reference(reference, arch, dtype, monkeypa
         _close(cache[f], reference[key + "/vcache_" + f], tol, "[B]-length cache " + f)
     np.testing.assert_array_equal(cache["length"].numpy(), reference[key + "/vcache_length"][0])
     routes.check(dtype)
-
-
-def test_non_dense_configs_raise():
-    """The ssm, hybrid, encdec and vlm architectures are not ported yet and
-    raise, naming ROADMAP.md's item 11c."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import get_model
-    for arch in ("mamba2-780m", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11c"):
-            get_config(arch)
-    cfg = get_smoke_config("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        get_model(cfg.with_(family="ssm"))
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        transformer.init_cache(cfg.with_(ssm_state=16), 1, 8)

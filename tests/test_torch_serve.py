@@ -2,9 +2,11 @@
 
 The reference runs once per file in a subprocess (tests/torch_parity.py): it
 serves the request sets of tests/test_serve.py with its `Engine` and
-`generate_reference` on the smoke configs (f32; dense, and the two MoE ones,
-whose bucketed prefills route their right-padding too) and exports its
-parameters;
+`generate_reference` on the smoke configs (f32; dense, the two MoE ones,
+whose bucketed prefills route their right-padding too, and the ssm and
+hybrid ones, mamba2 and zamba2, which prefill at the exact prompt length
+even with bucket_prefill=True: SSM state integrates every token) and
+exports its parameters;
 the port serves the same requests with the same parameters
 (`params_from_reference`) and must give the same tokens and statistics.
 Greedy decoding compares argmaxes of logits that agree to ~3e-6
@@ -23,6 +25,7 @@ from torch_parity import run_reference
 
 ARCHS = ("internlm2-1.8b", "codeqwen1.5-7b")
 MOE_ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b")
+SSM_ARCHS = ("mamba2-780m", "zamba2-2.7b")
 SAMPLED = dict(temperature=0.8, top_k=40)
 
 
@@ -49,7 +52,7 @@ def _overflow_requests():
 # same way on both sides from the helpers above
 ENGINE_CASES = [
     ("oracle_" + arch, arch, dict(max_batch=2, max_len=64), "_requests(5, V)")
-    for arch in ARCHS + MOE_ARCHS
+    for arch in ARCHS + MOE_ARCHS + SSM_ARCHS
 ] + [
     ("slot_reuse", ARCHS[0], dict(max_batch=2, max_len=64), "_requests(6, V, max_new=3)"),
     ("bucketed", ARCHS[0], dict(max_batch=2, max_len=64, bucket_prefill=True),
@@ -61,8 +64,15 @@ ENGINE_CASES = [
      "sampling=SamplingParams(temperature=0.8, top_k=10, seed=42))]"),
     ("sampled", ARCHS[0], dict(max_batch=2, max_len=64), "_requests(6, V, seed=4, sampled=True)"),
     ("overflow", ARCHS[0], dict(max_batch=2, max_len=16), "_overflow_requests()"),
+    ("slot_reuse_mamba2", SSM_ARCHS[0], dict(max_batch=2, max_len=64),
+     "_requests(6, V, max_new=3)"),
+    ("exact_mamba2", SSM_ARCHS[0], dict(max_batch=2, max_len=64, bucket_prefill=False),
+     "_requests(4, V, seed=3)"),
+    ("sampled_zamba2", SSM_ARCHS[1], dict(max_batch=2, max_len=64),
+     "_requests(6, V, seed=4, sampled=True)"),
+    ("overflow_zamba2", SSM_ARCHS[1], dict(max_batch=2, max_len=16), "_overflow_requests()"),
 ]
-ORACLE = {arch: "_requests(5, V)" for arch in ARCHS + MOE_ARCHS}
+ORACLE = {arch: "_requests(5, V)" for arch in ARCHS + MOE_ARCHS + SSM_ARCHS}
 
 
 def _helpers_source():
@@ -82,11 +92,11 @@ from repro.models.registry import init_all
 from repro.serve import Engine, Request, SamplingParams, generate_reference
 {_helpers_source()}
 params = {{}}
-for arch in {ARCHS + MOE_ARCHS!r}:
+for arch in {ARCHS + MOE_ARCHS + SSM_ARCHS!r}:
     cfg = get_smoke_config(arch)
     params[arch], _ = init_all(cfg, seed=0)
     flat = paths_from_tree({{k: v for k, v in params[arch].items() if k != "prefix"}})
-    for i, layer in enumerate(params[arch]["prefix"]):
+    for i, layer in enumerate(params[arch].get("prefix", [])):
         flat.update(paths_from_tree(layer, f"prefix/{{i}}"))
     for path, v in flat.items():
         OUT[arch + "/param/" + path] = np.asarray(v, np.float32)
@@ -97,7 +107,9 @@ for name, arch, kw, reqs in {[(n, a, kw, r) for n, a, kw, r in ENGINE_CASES]!r}:
     for uid, toks in eng.run(eval(reqs)).items():
         OUT[f"{{name}}/{{uid}}"] = np.asarray(toks)
     OUT[name + "/stats"] = np.asarray([eng.steps, eng.prefill_tokens, eng.decode_tokens])
-    OUT[name + "/lengths"] = np.asarray(eng.cache["blocks"]["length"][0])
+    lengths = {{"ssm": lambda c: c["length"], "hybrid": lambda c: c["sites"]["length"][0]}}.get(
+        cfg.family, lambda c: c["blocks"]["length"][0])(eng.cache)
+    OUT[name + "/lengths"] = np.asarray(lengths)
 for arch, reqs in {ORACLE!r}.items():
     cfg = get_smoke_config(arch)
     V = cfg.vocab_size
@@ -113,6 +125,8 @@ out = Engine(cfg, params["internlm2-1.8b"], max_batch=1, max_len=32).run(
 OUT["eos/1"] = np.asarray(out[1])
 for uid, toks in launch_serve.main([]).items():
     OUT[f"launch/{{uid}}"] = np.asarray(toks)
+for uid, toks in launch_serve.main(["--arch", "mamba2-780m", "--requests", "6"]).items():
+    OUT[f"launch_mamba2/{{uid}}"] = np.asarray(toks)
 """
     return run_reference(body)
 
@@ -120,7 +134,7 @@ for uid, toks in launch_serve.main([]).items():
 @pytest.fixture(scope="module")
 def params(reference):
     out = {}
-    for arch in ARCHS + MOE_ARCHS:
+    for arch in ARCHS + MOE_ARCHS + SSM_ARCHS:
         pre = arch + "/param/"
         flat = {k[len(pre):]: v for k, v in reference.items() if k.startswith(pre)}
         out[arch] = params_from_reference(get_smoke_config(arch), flat, device="cpu")
@@ -156,7 +170,7 @@ def test_idle_slot_overflow(reference, params):
     assert max(eng.cache["length"].tolist()) == 30 == reference["overflow/lengths"].max()
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + SSM_ARCHS)
 def test_generate_reference_matches(reference, params, arch):
     cfg = get_smoke_config(arch)
     V = cfg.vocab_size  # noqa: F841
@@ -184,6 +198,48 @@ def test_launch_serve_matches_reference(reference, params, monkeypatch, capsys):
     out = launch_serve.main(["--device", "cpu"])
     assert out == _ref_tokens(reference, "launch")
     assert "served 16 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_engine_prefills_at_exact_length(reference, params, arch, monkeypatch):
+    """bucket_prefill=True (the default) leaves the ssm and hybrid families at
+    the exact prompt length, as the reference does: every prefill takes the
+    prompt's first P - 1 tokens, unpadded, into a slot zeroed first, and the
+    tokens are the reference's."""
+    from repro_torch.serve import engine as engine_mod
+    cfg = get_smoke_config(arch)
+    V = cfg.vocab_size
+    eng = Engine(cfg, params[arch], max_batch=2, max_len=64, device="cpu", bucket_prefill=True)
+    assert not eng.bucket_prefill
+    seen = []
+    prefill = eng.api.prefill
+
+    def recorded(cfg_, params_, batch, cache):
+        seen.append((batch["tokens"].shape[1],
+                     all(bool((buf == 0).all()) for buf in cache.values())))
+        return prefill(cfg_, params_, batch, cache)
+
+    eng.api = eng.api._replace(prefill=recorded)
+    reqs = _requests(5, V)
+    assert eng.run(reqs) == _ref_tokens(reference, "oracle_" + arch)
+    assert seen == [(len(r.prompt) - 1, True) for r in reqs if len(r.prompt) > 1]
+    assert engine_mod.SUPPORTED_FAMILIES == ("dense", "moe", "ssm", "hybrid")
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-mistral-7b"])
+def test_engine_refuses_the_reference_unserved_families(arch):
+    """encdec and vlm run through prefill and decode_step only, as in the reference."""
+    cfg = get_smoke_config(arch)
+    with pytest.raises(ValueError, match="families"):
+        Engine(cfg, {}, device="cpu")
+
+
+def test_launch_serve_mamba2_matches_reference(reference, params, monkeypatch, capsys):
+    """`python -m repro_torch.launch.serve --arch mamba2-780m --device cpu`."""
+    monkeypatch.setattr(launch_serve, "init_all", lambda cfg, seed, device: params["mamba2-780m"])
+    out = launch_serve.main(["--arch", "mamba2-780m", "--requests", "6", "--device", "cpu"])
+    assert out == _ref_tokens(reference, "launch_mamba2")
+    assert "served 6 requests" in capsys.readouterr().out
 
 
 def test_engine_rejects_bad_requests(params):
