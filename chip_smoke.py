@@ -136,7 +136,27 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    512 text tokens) at full width and depth, bf16, through prefill and 64
    greedy decode_steps: ms of encode + prefill and per step, peak memory,
    flash launches by kernel, every logit finite, the prefill's last logits
-   held to a forward without a cache.
+   held to a forward without a cache;
+10. the train path (`repro_torch.train`, `launch/train.py`; attention
+   through the reference's chunked attention under autograd, never the
+   flash kernel, which has no backward): train_parity runs the dense, moe
+   and ssm smokes (f32) 3 steps each on the card and on the CPU from the
+   same params and batch (losses within 1e-4 relative, params within 1e-3,
+   grad norms finite, no flash launch), checks that the flash kernel
+   refuses inputs that need a gradient, restores a bf16 smoke state saved
+   from the card (async) leaf for leaf, and resumes launch/train.py from
+   its --ckpt-dir to the uninterrupted run's losses; train_main trains
+   internlm2-1.8b at full width (24 layers, d 2048, vocab 92544, bf16
+   params, f32 master and Adam moments) 12 steps on WalkLoader batches of
+   8 x 512 tokens from a scale-20 nb-8 graph generated on the card: loss,
+   grad norm and lr per step, the median step ms from step 3 on split into
+   forward + backward and optimizer (CUDA events), tokens/s over that
+   median and over the host's wall time of the same steps, peak memory,
+   launch counts (generate's graph kernels; no flash launch), the loss
+   falling; train_external runs `launch/train.py --data external --scale 12
+   --steps 20 --seq 16` on the card (StreamingGenerator, ExternalWalkLoader,
+   training): the loss falls and the disk tier's hooks launched their
+   graph kernels.
 
 Prints the card's name and power limit, one JSON line per check, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Any failed
@@ -147,6 +167,7 @@ repository beside it, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import signal
@@ -195,6 +216,27 @@ PARITY_FAMILIES = (SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH, VLM_ARCH)   # prefill of 
 # zamba2's smoke at its real head width 80 (d_model 320 over 4 heads), the
 # rest the smoke's; its bf16 prefill of 20 tokens takes the (80, 80) prefill kernel
 PARITY_D80 = dict(d_model=320, num_heads=4, num_kv_heads=4)
+# The train path (`repro_torch.train`, `launch/train.py`): train_parity runs
+# the dense, moe and ssm smokes (f32) TRAIN_PARITY_STEPS steps each on the card
+# and on the CPU from the same seeded params and batch; train_main trains
+# internlm2-1.8b at full width on WalkLoader batches of a scale-20 nb-8 graph
+# generated on the card; train_external runs launch/train.py's out-of-core
+# route.  Card vs CPU: f32 losses to TRAIN_LOSS_RTOL (sums in another order)
+# and params to TRAIN_PARAM_ATOL (Adam's first steps are about sign(g), so a
+# grad near 0 that flips moves its param by up to 2 lr)
+TRAIN_PARITY_ARCHS = ("internlm2-1.8b", "qwen3-moe-235b-a22b", "mamba2-780m")
+TRAIN_PARITY_STEPS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 3, 4, 16
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-4, 1e-3
+TRAIN_RESUME_STEPS = 8             # launch/train.py: 4 steps, then resumed to 8
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_SCALE, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 512
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 12, 2, 1e-3
+TRAIN_TIMED_FROM = 3               # steps before this one warm up (allocator, cuBLAS)
+TRAIN_TRACE_STEPS = 1              # train_trace: steps under torch.profiler after the timed ones
+# sequences of 16 tokens: the out-of-core corpus costs about a second a hop
+# on the host, so the launcher's default 64 (65 hops) took 75 s of the script
+TRAIN_EXTERNAL_ARGV = ["--data", "external", "--scale", "12", "--steps", "20", "--seq", "16"]
+TRAIN_SEED = 0
 # deepseek-v2's smoke at the real MLA head widths (q/k 128 + 64, v 128) and
 # routing (64 experts, top-6, unnormalised weights), a few layers; the
 # smoke's own (24, 16) heads are not a width the kernel takes
@@ -711,6 +753,19 @@ def main() -> int:
         mark(label)
     for label, arch in (("encdec_main", ENCDEC_ARCH), ("vlm_main", VLM_ARCH)):
         main_counts[label] = generate_phase(torch, ops, dev, arch, label)
+        torch.cuda.empty_cache()
+        mark(label)
+
+    # ------------------------------------------------------------------
+    # 10. the train path: card == CPU on the smokes, internlm2-1.8b at full
+    # width on graph-walk batches, launch/train.py's out-of-core route
+    # ------------------------------------------------------------------
+    train_parity_phase(torch, ops, dev)
+    torch.cuda.empty_cache()
+    mark("train_parity")
+    for label, phase in (("train_main", train_main_phase),
+                         ("train_external", train_external_phase)):
+        main_counts[label] = phase(torch, ops, dev)
         torch.cuda.empty_cache()
         mark(label)
     emit({"phase": "timeline", "seconds": {name: t - _MARKS[i - 1][1]
@@ -2265,6 +2320,282 @@ def serve_trace(torch, engine, cfg, events):
           "wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
           "seconds": time.perf_counter() - t0,
           "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:10]]})
+
+
+def _train_state_pair(dev, arch):
+    """(cfg, CPU state, card state, CPU batch, card batch) of a smoke config
+    from one seeded draw on the CPU, copied to the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_all, input_specs
+    from repro_torch.train import OptimConfig, init_state, tree
+
+    cfg = get_smoke_config(arch)
+    ocfg = OptimConfig(lr=3e-3, warmup_steps=2, total_steps=100)
+    params = init_all(cfg, seed=TRAIN_SEED, device="cpu")
+    on_card = tree.tree_map(lambda t: t.to(dev, copy=True), params)
+    batch = input_specs(cfg, "train", TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, seed=TRAIN_SEED,
+                        device="cpu")
+    return (cfg, ocfg, init_state(cfg, ocfg, params=params),
+            init_state(cfg, ocfg, params=on_card), batch,
+            {k: v.to(dev) for k, v in batch.items()})
+
+
+def train_parity_phase(torch, ops, dev):
+    """The train path on the card against the CPU: for each of
+    TRAIN_PARITY_ARCHS (dense, moe, ssm; f32 smokes) TRAIN_PARITY_STEPS
+    steps of make_train_step from the same params and batch on both, losses
+    within TRAIN_LOSS_RTOL, final params within TRAIN_PARAM_ATOL, every
+    grad_norm finite, no flash_attention launch (the train route is the
+    reference's chunked attention); the flash kernel refuses inputs that
+    need a gradient; a bf16 smoke state saved from the card (async) and
+    restored has equal leaves; launch/train.py run 4 steps, then resumed
+    from its --ckpt-dir to TRAIN_RESUME_STEPS, gives the uninterrupted run's
+    losses within TRAIN_LOSS_RTOL."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import main as train_cli
+    from repro_torch.models import input_specs
+    from repro_torch.train import OptimConfig, checkpoint, init_state, make_train_step, tree
+
+    t0 = time.perf_counter()
+    rows = []
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg, ocfg, cpu_state, card_state, cpu_batch, card_batch = _train_state_pair(dev, arch)
+        step_fn = make_train_step(cfg, ocfg)
+        losses = {"cpu": [], "card": []}
+        norms = []
+        ops.reset_launches()
+        for _ in range(TRAIN_PARITY_STEPS):
+            card_state, m = step_fn(card_state, card_batch)
+            losses["card"].append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        counts = dict(ops.LAUNCHES)
+        for _ in range(TRAIN_PARITY_STEPS):
+            cpu_state, m = step_fn(cpu_state, cpu_batch)
+            losses["cpu"].append(float(m["loss"]))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+        param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in
+                        zip(tree.leaves(card_state.params), tree.leaves(cpu_state.params)))
+        row = {"arch": arch, "family": cfg.family, "losses_card": losses["card"],
+               "losses_cpu": losses["cpu"], "loss_max_rel": loss_rel,
+               "param_max_abs": param_err, "grad_norms_card": norms,
+               "flash_launches": counts["flash_attention"],
+               "bucket_hist_launches": counts["bucket_hist"]}
+        rows.append(row)
+        require(all(math.isfinite(n) for n in norms), f"train_parity {arch}: grad_norm {norms}")
+        require(loss_rel <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_ATOL,
+                f"train_parity {arch}: losses {losses}, params max |diff| {param_err}")
+        require(counts["flash_attention"] == 0, f"train_parity {arch}: flash_attention launched")
+        require(cfg.family != "moe" or counts["bucket_hist"] > 0,
+                f"train_parity {arch}: MoE dispatch never launched bucket_hist")
+
+    # the flash kernel has no backward: inputs that need a gradient raise
+    g = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    q, k, v = (torch.randn(1, 2, 32, 64, generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    refused = False
+    try:
+        flash_attention(q.requires_grad_(True), k, v)
+    except RuntimeError:
+        refused = True
+    with torch.no_grad():
+        served = flash_attention(q, k, v)
+    require(refused, "flash_attention returned an output for q that requires grad")
+    require(bool(torch.isfinite(served).all()), "flash_attention under no_grad")
+
+    # a bf16 smoke state from the card through an async checkpoint
+    cfg = get_smoke_config(TRAIN_ARCH).with_(dtype="bfloat16")
+    ocfg = OptimConfig(lr=3e-3, warmup_steps=2, total_steps=100)
+    state = init_state(cfg, ocfg, seed=TRAIN_SEED, device=dev)
+    batch = input_specs(cfg, "train", TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, seed=TRAIN_SEED,
+                        device=dev)
+    state, _ = make_train_step(cfg, ocfg)(state, batch)
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, 0, state, blocking=False)
+        checkpoint.wait_for_async_saves()
+        restored, step = checkpoint.restore_latest(d, state)
+        leaves = tree.leaves(state)
+        ckpt_equal = step == 0 and all(
+            a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+            for a, b in zip(tree.leaves(restored), leaves))
+    require(ckpt_equal, "train_parity: restored checkpoint differs from the saved state")
+
+    # launch/train.py: interrupted after 4 steps, resumed from --ckpt-dir
+    argv = ["--scale", "12", "--batch", "4", "--seq", "32", "--lr", "3e-3",
+            "--ckpt-every", "4", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() as b:
+        whole = train_cli(argv + ["--steps", str(TRAIN_RESUME_STEPS), "--ckpt-dir", a])
+        first = train_cli(argv + ["--steps", "4", "--ckpt-dir", b])
+        rest = train_cli(argv + ["--steps", str(TRAIN_RESUME_STEPS), "--ckpt-dir", b])
+    resumed = first + rest
+    resume_rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, whole))
+    emit({"phase": "train_parity", "runs": rows, "loss_rtol": TRAIN_LOSS_RTOL,
+          "param_atol": TRAIN_PARAM_ATOL, "flash_refuses_grad": refused,
+          "checkpoint_bf16_equal": ckpt_equal, "resume_losses": resumed,
+          "uninterrupted_losses": whole, "resume_max_rel": resume_rel,
+          "seconds": time.perf_counter() - t0})
+    require(len(rest) == TRAIN_RESUME_STEPS - 4 and resume_rel <= TRAIN_LOSS_RTOL,
+            f"train_parity: resumed losses {resumed} against {whole}")
+
+
+def train_main_phase(torch, ops, dev):
+    """internlm2-1.8b at full width (bf16 params, f32 master and Adam
+    moments) trained TRAIN_STEPS steps (warmup TRAIN_WARMUP) on WalkLoader
+    batches (B TRAIN_BATCH x S TRAIN_SEQ, the model's vocabulary) of a
+    scale-TRAIN_SCALE nb-8 graph generated on the card; launch counts set to
+    0 just before generate and read after the last step.  Per step: loss,
+    grad_norm, lr and CUDA-event ms of forward + backward and of the
+    optimizer (`optim.apply_updates`, timed by a wrapper); the median from
+    step TRAIN_TIMED_FROM on, tokens/s = B S / step time, and the same over
+    the host's wall time of those steps (their batches' production and any
+    stall between steps included: the end-to-end rate), peak memory from
+    the phase's start.  The losses are finite and the mean of the last 3 is
+    below the first; flash_attention is never launched.  Returns the launch
+    counts of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import generate
+    from repro_torch.core.types import GraphConfig
+    from repro_torch.data import LoaderConfig, WalkLoader
+    from repro_torch.train import OptimConfig, init_state, make_train_step, tree
+    from repro_torch.train import optim as optim_lib
+
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    gcfg = GraphConfig(scale=TRAIN_SCALE, nb=NB)
+    res = generate(gcfg, device=dev)
+    require(int(res.dropped_redistribute) == 0, "train_main: generate dropped records")
+    loader = WalkLoader(gcfg, res.csr, LoaderConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                                    vocab=cfg.vocab_size), device=dev)
+    del res
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    graph_counts = dict(ops.LAUNCHES)
+    t = time.perf_counter()
+    ocfg = OptimConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    state = init_state(cfg, ocfg, seed=TRAIN_SEED, device=dev)
+    step_fn = make_train_step(cfg, ocfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    marks = []          # (start, optimizer start, end) events of each step
+    apply_updates = optim_lib.apply_updates
+
+    def timed_updates(*args, **kw):
+        marks[-1].append(event())
+        out = apply_updates(*args, **kw)
+        marks[-1].append(event())
+        return out
+
+    metrics = []
+    optim_lib.apply_updates = timed_updates
+    try:
+        t = time.perf_counter()
+        for step in range(TRAIN_STEPS):
+            if step == TRAIN_TIMED_FROM:
+                torch.cuda.synchronize()
+                t_from = time.perf_counter()
+            batch = loader.batch(step)
+            marks.append([event()])
+            state, m = step_fn(state, batch)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        wall_ms = (time.perf_counter() - t_from) * 1e3 / (TRAIN_STEPS - TRAIN_TIMED_FROM)
+    finally:
+        optim_lib.apply_updates = apply_updates
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in metrics]
+    fwd_bwd = [a.elapsed_time(b) for a, b, _ in marks]
+    optim_ms = [b.elapsed_time(c) for _, b, c in marks]
+    step_ms = [a.elapsed_time(c) for a, _, c in marks]
+    med = statistics.median(step_ms[TRAIN_TIMED_FROM:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    line = {"phase": "train_main", "arch": cfg.name, "dtype": cfg.dtype,
+            "params": sum(p.numel() for p in tree.leaves(state.params)),
+            "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "graph_scale": TRAIN_SCALE, "nb": NB, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "warmup": TRAIN_WARMUP, "lr_peak": TRAIN_LR,
+            "graph_s": graph_s, "init_s": init_s, "train_s": train_s,
+            "losses": losses, "grad_norms": [float(m["grad_norm"]) for m in metrics],
+            "lrs": [float(m["lr"]) for m in metrics],
+            "step_ms": step_ms, "fwd_bwd_ms": fwd_bwd, "optimizer_ms": optim_ms,
+            "step_ms_median": med,
+            "fwd_bwd_ms_median": statistics.median(fwd_bwd[TRAIN_TIMED_FROM:]),
+            "optimizer_ms_median": statistics.median(optim_ms[TRAIN_TIMED_FROM:]),
+            "tokens_per_step": tokens, "tokens_per_s": tokens / (med / 1e3),
+            "wall_step_ms": wall_ms, "wall_tokens_per_s": tokens / (wall_ms / 1e3),
+            "peak_bytes": peak, "peak_gib": peak / 2**30,
+            "graph_launches": graph_counts, "launches": counts}
+    emit(line)
+    train_trace(torch, step_fn, state, loader)
+    require(all(math.isfinite(x) for x in losses), f"train_main: losses {losses}")
+    require(statistics.mean(losses[-3:]) < losses[0], f"train_main: loss did not fall {losses}")
+    require(counts["flash_attention"] == 0, "train_main: flash_attention launched")
+    for name in ("rmat_edges", "relabel_gather", "bucket_hist"):
+        require(graph_counts[name] > 0, f"train_main: generate never launched {name}")
+    del state, loader, metrics
+    return counts
+
+
+def train_trace(torch, step_fn, state, loader):
+    """TRAIN_TRACE_STEPS more steps of train_main under torch.profiler (the
+    card's activity only): the card's busy share (kernel and copy time over
+    the window's wall time) and the device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for step in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_TRACE_STEPS):
+            state, _ = step_fn(state, loader.batch(step))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(ms for _, ms, _ in rows)
+    require(device_ms > 0, "train_trace: the profiler saw no device time")
+    rows.sort(key=lambda r: -r[1])
+    emit({"phase": "train_trace", "steps": TRAIN_TRACE_STEPS, "wall_ms": wall_ms,
+          "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+          "seconds": time.perf_counter() - t0,
+          "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:12]]})
+
+
+def train_external_phase(torch, ops, dev):
+    """launch/train.py's out-of-core route on the card (`main` with
+    TRAIN_EXTERNAL_ARGV, its smoke config): StreamingGenerator, then
+    ExternalWalkLoader, then training.  Launch counts set to 0 just before
+    and read just after; the loss falls (mean of the last 5 below the
+    first 5's) and the disk tier's hooks launched their graph kernels.
+    Returns the launch counts of the run."""
+    from repro_torch.launch.train import main as train_cli
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    losses = train_cli(TRAIN_EXTERNAL_ARGV + ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    emit({"phase": "train_external", "argv": TRAIN_EXTERNAL_ARGV, "losses": losses,
+          "wall_s": wall, "launches": counts})
+    require(all(math.isfinite(x) for x in losses)
+            and statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+            f"train_external: loss did not fall {losses}")
+    for name in ("rmat_edges", "relabel_gather", "bucket_hist"):
+        require(counts[name] > 0, f"train_external: the disk tier never launched {name}")
+    require(counts["flash_attention"] == 0, "train_external: flash_attention launched")
+    return counts
 
 
 if __name__ == "__main__":

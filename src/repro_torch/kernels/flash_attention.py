@@ -24,6 +24,12 @@ a dispatch by shape (`plan`), not a fallback.  The decode kernel's query
 tiles, key chunks and scratch come from `plan` too (a 192-wide q row takes
 at most 8 rows a block); its chunk merge happens inside the same launch.
 Each call counts as one launch of `flash_attention`.
+
+The kernels compute the forward only, as the Pallas kernel does: on CUDA
+the wrapper raises for inputs that need a gradient (grad mode on and q, k
+or v requiring grad) rather than return an output that autograd cannot
+differentiate.  Training takes `models/layers.py`'s train route, the
+reference's `_chunked_attention`, which is `flash_attention_plain` here.
 """
 
 from __future__ import annotations
@@ -166,6 +172,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (k.device == v.device == q.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention kernel has no backward: its inputs require grad "
+                           "under grad mode (train through models.layers.train_attention, "
+                           "or run under torch.no_grad)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes f32 or bf16 alike, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")

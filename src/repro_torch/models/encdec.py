@@ -23,8 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from ..kernels.flash_attention import flash_attention
-from .layers import attention, decode_positions, embed, mlp, rmsnorm, unembed
+from .layers import attend, attention, decode_positions, embed, mlp, rmsnorm, unembed
 from .transformer import init_attention, init_mlp, zero_aux
 
 
@@ -78,7 +77,7 @@ def _cross_attn(p, cfg, x, k, v):
     """x [B, S, d] attends, non-causally, to all Se encoder keys."""
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.hd).transpose(1, 2).contiguous()
-    out = flash_attention(q, k, v, causal=False)
+    out = attend(q, k, v, causal=False)
     return out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.hd) @ p["wo"]
 
 

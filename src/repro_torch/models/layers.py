@@ -2,10 +2,21 @@
 SwiGLU MLP, GQA attention (+bias), MLA.
 
 Activations [B, S, d]; attention tensors [B, H, S, hd]; weights in the
-reference's [in, out] layout, applied as `x @ w`.  The attention of every
-call goes through `kernels/flash_attention.py`: the hand-written kernel for
-CUDA tensors, its plain version (the reference's `_chunked_attention`) for
-CPU tensors.
+reference's [in, out] layout, applied as `x @ w`.  Every attention call goes
+through `attend`, which takes one of two routes:
+
+  * serving (the default): `kernels/flash_attention.py::flash_attention`,
+    the hand-written kernel for CUDA tensors, its plain version for CPU
+    tensors;
+  * training, inside `with train_attention():` (the train step enters it
+    around its forward): the reference's `_chunked_attention` itself
+    (`flash_attention_plain`), differentiated by autograd on every device.
+    The reference trains through that function (its `make_train_step` runs
+    with `dist=None`, and `_chunked_attention` reaches the Pallas kernel
+    only when a `DistContext` asks for it), and its kernel has no backward.
+    The flash wrapper refuses CUDA inputs that need a gradient, so a forward
+    under autograd outside this route raises instead of silently losing
+    the attention's gradient.
 
 A GQA layer's cache is {"k", "v": [B, Hkv, max_len, hd], "length": int32
 0-d or [B]}; an MLA layer's {"c_kv": [B, max_len, kv_lora_rank], "k_rope":
@@ -17,14 +28,38 @@ same buffers with "length": length + S.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, flash_attention_plain
 
 # f32 products (the f32 logits, the f32 smoke configs) run in full f32, not
 # TF32: PyTorch's default, set here because parity with the reference needs it.
 torch.backends.cuda.matmul.allow_tf32 = False
+
+
+_TRAIN_ROUTE = contextvars.ContextVar("train_attention", default=False)
+
+
+@contextlib.contextmanager
+def train_attention():
+    """Attention calls inside the block take the train route (see above)."""
+    token = _TRAIN_ROUTE.set(True)
+    try:
+        yield
+    finally:
+        _TRAIN_ROUTE.reset(token)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+           offset=None) -> torch.Tensor:
+    """GQA attention [B, Hq, Sq, Dv] by the route in force (see above)."""
+    if _TRAIN_ROUTE.get():
+        return flash_attention_plain(q, k, v, causal=causal, offset=offset)
+    return flash_attention(q, k, v, causal=causal, offset=offset)
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -100,9 +135,9 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, kv_cache=None
         _write_cache(kv_cache["k"], k, length)
         _write_cache(kv_cache["v"], v, length)
         new_cache = {"k": kv_cache["k"], "v": kv_cache["v"], "length": length + S}
-        out = flash_attention(q, kv_cache["k"], kv_cache["v"], causal=True, offset=length)
+        out = attend(q, kv_cache["k"], kv_cache["v"], causal=True, offset=length)
     else:
-        out = flash_attention(q, k.contiguous(), v.contiguous(), causal=causal)
+        out = attend(q, k.contiguous(), v.contiguous(), causal=causal)
     out = out.transpose(1, 2).reshape(B, S, Hq * hd)
     return out @ p["wo"], new_cache
 
@@ -150,7 +185,7 @@ def mla_attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *, kv_cache=
     k_nope = (c_kv @ p["w_uk"]).reshape(B, Sk, H, nope).transpose(1, 2)
     v = (c_kv @ p["w_uv"]).reshape(B, Sk, H, vh).transpose(1, 2).contiguous()
     k = torch.cat([k_nope, k_rope.expand(B, H, Sk, rope_d)], dim=-1)
-    out = flash_attention(q, k, v, causal=True, offset=offset)
+    out = attend(q, k, v, causal=True, offset=offset)
     out = out.transpose(1, 2).reshape(B, S, H * vh)
     return out @ p["wo"], new_cache
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card, and
-the disk tier's per-chunk hooks against their CPU path.
+"""The CUDA kernels against their plain PyTorch versions, on the card, the
+disk tier's per-chunk hooks against their CPU path, and the train path's
+steps and checkpoints on the card against the CPU.
 
 Marked `gpu`: they skip where torch.cuda.is_available() is false.  This file
 imports no jax, so it runs on a machine that has only the port's packages:
@@ -528,3 +529,73 @@ def test_cluster_entry_points_raise_where_cuda_is_unavailable(cuda, tmp_path, mo
         ClusterGenerator(cfg, spec, str(tmp_path / "ctrl"))
     with pytest.raises(RuntimeError, match="cuda"):
         JobScheduler(spec, str(tmp_path / "q"))
+
+
+# ---------------------------------------------------------------------------
+# The train path on the card: attention by the reference's chunked route
+# (the flash kernel has no backward and refuses inputs that need one)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_inputs_that_need_grad(cuda):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 32, 64, generator=g).to(cuda, torch.bfloat16) for _ in range(3))
+    q.requires_grad_(True)
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == before
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert row_error(out, ops.flash_attention_plain(q.detach(), k, v)) <= TOLERANCE[torch.bfloat16]
+
+
+TRAIN_ARCHS = ("internlm2-1.8b", "qwen3-moe-235b-a22b", "mamba2-780m")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """3 steps of a smoke (f32) from the same params and batch: losses within
+    1e-4 relative, params within 1e-3 (Adam's first steps are about
+    sign(g)), no flash launch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_all, input_specs
+    from repro_torch.train import OptimConfig, init_state, make_train_step, tree
+
+    cfg = get_smoke_config(arch)
+    ocfg = OptimConfig(lr=3e-3, warmup_steps=2, total_steps=100)
+    params = init_all(cfg, seed=0, device="cpu")
+    on_card = tree.tree_map(lambda t: t.to(cuda), params)
+    batch = input_specs(cfg, "train", 4, 16, seed=0, device="cpu")
+    cpu_state = init_state(cfg, ocfg, params=params)
+    card_state = init_state(cfg, ocfg, params=on_card)
+    step = make_train_step(cfg, ocfg)
+    before = ops.LAUNCHES["flash_attention"]
+    for _ in range(3):
+        cpu_state, want = step(cpu_state, batch)
+        card_state, got = step(card_state, {k: v.to(cuda) for k, v in batch.items()})
+        assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4 * abs(float(want["loss"]))
+    assert ops.LAUNCHES["flash_attention"] == before
+    for a, b in zip(tree.leaves(card_state.params), tree.leaves(cpu_state.params)):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_checkpoint_of_a_card_state_restores_equal_leaves(cuda, tmp_path):
+    """A bf16 smoke TrainState on the card (bf16 leaves stored as 16-bit
+    patterns) saved asynchronously and restored leaf for leaf."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import OptimConfig, checkpoint, init_state, tree
+
+    cfg = get_smoke_config("internlm2-1.8b").with_(dtype="bfloat16")
+    state = init_state(cfg, OptimConfig(), seed=1, device=cuda)
+    checkpoint.save(str(tmp_path), 5, state, blocking=False)
+    checkpoint.wait_for_async_saves()
+    restored, step = checkpoint.restore_latest(str(tmp_path), state)
+    assert step == 5
+    for a, b in zip(tree.leaves(restored), tree.leaves(state)):
+        assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+        assert a.requires_grad == b.requires_grad

@@ -188,6 +188,11 @@ assert {f"repro_torch.core.{m}" for m in ("trace", "blockstore", "shardmap", "tr
         "corpus", "phases", "external", "chunks", "hostgen", "types", "cluster",
         "jobqueue")} <= set(names)
 assert "repro_torch.launch.cluster" in names
+assert {"repro_torch.train", "repro_torch.launch.train"} | {f"repro_torch.train.{m}" for m in (
+        "optim", "step", "compression", "checkpoint", "fault", "tree")} <= set(names)
+from repro_torch.train import OptimConfig, TrainState, init_state, make_train_step
+from repro_torch.train.fault import run_with_restarts
+from repro_torch.launch.train import main as train_main
 from repro_torch.core import ClusterGenerator, HostRunner, PartitionedGenerator, StreamingGenerator
 from repro_torch.core.cluster import ClusterController, LocalExecBackend
 from repro_torch.core.jobqueue import JobScheduler, submit_job

@@ -20,6 +20,8 @@ import sys
 import tempfile
 
 import numpy as np
+import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Hypothesis writes its caches (local constants, unicode tables) where this
@@ -63,3 +65,16 @@ def report_rows(orchestrator) -> list:
     """`orchestrator.report()` without its timing keys (seconds, *_s)."""
     return [{k: v for k, v in row.items() if k != "seconds" and not k.endswith("_s")}
             for row in orchestrator.report()]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One PyTorch intra-op thread for the test.  The suite runs in several
+    processes at once, and PyTorch's default pool of one thread per core
+    oversubscribes them: a small train step then waits on its threads
+    (launch/train.py at scale 9: 18 s under load against 0.6 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
