@@ -23,7 +23,10 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    shape, at walks_main's call, at the walk shape of capacity factor 4, at
    k 64 and with no ids (its fixed cost, beside an empty kernel), at
    serve_moe's expert dispatch (k 64: an admission's 2048 x 6 ids, a decode
-   wave's 8 x 6), each with
+   wave's 8 x 6) and at serve_moe_ep's (k 4: a sender's records in the
+   exchange; k 64: every receiver's rows in the local bucketing, and a
+   decode wave's gather; k 256: the load-balance counts; and the k 16
+   register-bin instance at one receiver's rows), each with
    bincount beside it; it is checked on two slices that start off a 16-byte
    boundary, and a planted fault (one id skipped) must fail the comparison.
    Before that, the attention library's `ptxas -v` report and SASS give
@@ -121,7 +124,19 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    around `moe_ffn`) and the drop totals of prefill and decode, the prefill
    drops recounted with plain ops from each layer's routes (equal to the
    dispatch's count) and split between prompt rows and right-padding; then
-   its serve_trace window;
+   its serve_trace window; then serve_moe_ep: the same weights (kept on
+   the card) and requests behind `Engine(dist=make_dist(cfg, {"data": 1,
+   "model": 4}))`, the experts dispatched over 4 expert shards (prefills by
+   the capacity all_to_all, decode waves by gather; `models/moe.py`), once
+   with the bf16 payload and once with the int8 one, 16 new tokens a
+   request: before them the smoke's MoE layer (f32) under that dispatch on
+   the card equals the CPU's (all_to_all at S 16, with and without int8,
+   and gather at S 1 and 6: 1e-5, plus one quantisation step for int8;
+   drops equal); each run's tokens/s, prefill and decode ms, MoE ms, drops,
+   bucket_hist launches (counted per MoE call) and peak, every logit
+   finite, no decode drop, the share of greedy tokens equal to serve_moe's,
+   and on the first admission's first and last MoE layers (prompt rows) EP
+   within 1e-1 of dense dispatch where neither drops (bf16 payload);
 8. serve_ssm and serve_hybrid: the same Engine and requests serving
    mamba2-780m (48 Mamba2 layers, no attention: no flash launch) and
    zamba2-2.7b (54 Mamba2 layers, the shared attention block at 9 sites of
@@ -200,6 +215,13 @@ SERVE_SAMPLED = (3, 7, 11, 15)     # uids that sample (temperature 0.8, top-k 40
 SERVE_SEED = 0
 TRACE_PROMPT, TRACE_NEW_TOKENS = 512, 32   # serve_trace's window
 MOE_ARCH = "deepseek-v2-lite-16b"   # serve_moe: the MoE + MLA config that fits one card
+# serve_moe_ep: serve_moe's weights and requests over 4 expert shards (the
+# reference mesh's "model" axis on one card), each request cut to
+# MOE_EP_NEW_TOKENS new tokens so that the bf16 and int8 runs together stay
+# inside a minute of the script's time limit
+MOE_EP_MESH = {"data": 1, "model": 4}
+MOE_EP_NEW_TOKENS = 16
+MOE_EP_PARITY = ((16, False), (1, False), (6, False), (16, True))   # (S, int8) of the smoke
 SSM_ARCH = "mamba2-780m"            # serve_ssm: attention-free, 48 Mamba2 layers
 HYBRID_ARCH = "zamba2-2.7b"         # serve_hybrid: 54 Mamba2 layers, 9 sites of 32 heads of 80
 ENCDEC_ARCH = "seamless-m4t-large-v2"   # encdec_main: 24 + 24 layers, prefill + decode_step
@@ -406,6 +428,9 @@ def main() -> int:
         hist_k8: sass.per_item_ops(listing, hist_k8),
         hist_k64: sass.per_item_ops(listing, hist_k64),
     }
+    for bins in (4, 16):      # serve_moe_ep's exchange (k 4); the k 16 register bins
+        name = f"bucket_hist_kernelILi{bins}E"
+        ops_per_item[name] = sass.per_item_ops(listing, name)
     usage = sass.ptxas_usage(graph_lib.with_suffix(".log").read_text())
     hist_usage = {re.search(r"bucket_hist_kernelI(.*?)EE", fn).group(1): u
                   for fn, u in usage.items() if "bucket_hist_kernel" in fn}
@@ -547,6 +572,14 @@ def main() -> int:
         check_kernel("bucket_hist", f"serve_moe dispatch, {case}: {n} ids, k {k}",
                      lambda: ops.bucket_hist(dk, k), lambda: ops.bucket_hist_plain(dk, k),
                      timed=True, main=False, n_bytes=4 * (n + k), n_ops=n * ops_per_item[hist_k64],
+                     library_fn=lambda: torch.bincount(dk, minlength=k), size=n)
+    # serve_moe_ep's expert-parallel dispatch (moe_ep_hist_shapes)
+    for case, n, k, pad in moe_ep_hist_shapes(moe_cfg):
+        dk = bucket_ids(torch, g, dev, n, k, pad)
+        per_item = ops_per_item[f"bucket_hist_kernelILi{bucket.plan(1, k, 1).bins}E"]
+        check_kernel("bucket_hist", case, lambda: ops.bucket_hist(dk, k),
+                     lambda: ops.bucket_hist_plain(dk, k), timed=True, main=False,
+                     n_bytes=4 * (n + k), n_ops=n * per_item,
                      library_fn=lambda: torch.bincount(dk, minlength=k), size=n)
     for k in (2, 8, 64):
         dk = torch.randint(0, k + 1, (1_000_003,), generator=g, device=dev, dtype=torch.int32)
@@ -748,9 +781,14 @@ def main() -> int:
     mark("serve_parity")
     for label, arch in (("serve_main", SERVE_ARCH), ("serve_moe", MOE_ARCH),
                         ("serve_ssm", SSM_ARCH), ("serve_hybrid", HYBRID_ARCH)):
-        main_counts[label] = serve_phase(torch, ops, dev, arch, label)
+        main_counts[label], served, params = serve_phase(torch, ops, dev, get_config(arch), label)
         torch.cuda.empty_cache()
         mark(label)
+        if label == "serve_moe":     # the same weights over 4 expert shards
+            main_counts.update(serve_moe_ep_phase(torch, ops, dev, params, served))
+            torch.cuda.empty_cache()
+            mark("serve_moe_ep")
+        del served, params
     for label, arch in (("encdec_main", ENCDEC_ARCH), ("vlm_main", VLM_ARCH)):
         main_counts[label] = generate_phase(torch, ops, dev, arch, label)
         torch.cuda.empty_cache()
@@ -1956,34 +1994,40 @@ def serve_parity_phase(torch, ops, dev):
         emit(line)
 
 
-def serve_phase(torch, ops, dev, arch, label):
-    """`arch` at full width behind the continuous-batching Engine, then a
-    serve_trace window.  For an MoE config also the MoE layers' time and
-    drops, and bucket_hist's launches; for the ssm and hybrid families each
-    admission's prompt tokens, SSD chunk and ms, and for ssm the cost of one
-    admission by prompt length (`chunk_cost`).  Flash launches: one per
-    attention layer (dense, moe; hybrid: one per site of the shared block;
-    ssm: none) and forward.  Returns the launch counts of the run."""
+def serve_phase(torch, ops, dev, cfg, label, *, dist=None, params=None,
+                max_new=SERVE_NEW_TOKENS, trace=True, moe_inputs=None):
+    """`cfg` at full width behind the continuous-batching Engine (with
+    `dist`, a DistContext, if given; with `params`, else seeded random
+    weights drawn on the card), then a serve_trace window unless `trace` is
+    false.  For an MoE config also the MoE layers' time and drops, and
+    bucket_hist's launches (`moe_hist_launches` per MoE call); with
+    `moe_inputs` (a list) the (parameters, input, prompt rows) of every MoE
+    call of the first admission's prefill are appended to it; for the ssm
+    and hybrid families each admission's prompt tokens, SSD chunk and ms,
+    and for ssm the cost of one admission by prompt length (`chunk_cost`).
+    Flash launches: one per attention layer (dense, moe; hybrid: one per
+    site of the shared block; ssm: none) and forward.  Returns the launch
+    counts of the run, the served tokens {uid: [tokens]} and the
+    parameters."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.models import init_all, layers, moe, transformer
     from repro_torch.models.ssm import _pick_chunk
     from repro_torch.serve import Engine
-
-    cfg = get_config(arch)
     # flash_attention calls of one forward
     attn_layers = {"ssm": 0, "hybrid": cfg.num_layers // max(1, cfg.shared_attn_every)}.get(
         cfg.family, cfg.num_layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
-    params = init_all(cfg, seed=SERVE_SEED, device=dev)
-    engine = Engine(cfg, params, max_batch=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device=dev)
+    if params is None:
+        params = init_all(cfg, seed=SERVE_SEED, device=dev)
+    engine = Engine(cfg, params, max_batch=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device=dev,
+                    dist=dist)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
     reqs = _serve_requests(SERVE_REQUESTS, cfg.vocab_size, np.random.default_rng(SERVE_SEED),
-                           SERVE_PROMPT_RANGE, SERVE_NEW_TOKENS, SERVE_SAMPLED)
+                           SERVE_PROMPT_RANGE, max_new, SERVE_SAMPLED)
 
     # CUDA events around every prefill and decode wave, and around every
     # attention and MoE call inside them; finiteness of every logit and the
@@ -2029,11 +2073,14 @@ def serve_phase(torch, ops, dev, arch, label):
         b.record()
         moe_events[kind_now[0]].append((a, b))
         dropped[kind_now[0]] += aux["dropped"]
+        moe_hist[0] += moe_hist_launches(cfg, dist, args[2].shape[1])
+        if moe_inputs is not None and kind_now[0] == "prefill" and len(admitted) == 1:
+            moe_inputs.append((args[0], args[2], prompt_rows[0]))
         return y, aux
 
     # each prefill MoE layer's experts beside its admission's prompt rows
     # (the rest of the bucketed prefill is right-padding), for the drop split
-    prompt_rows, prefill_routes, admitted = [0], [], []
+    prompt_rows, prefill_routes, admitted, moe_hist = [0], [], [], [0]
 
     def admit(slot_idx, req):
         prompt_rows[0] = len(req.prompt) - 1
@@ -2067,12 +2114,16 @@ def serve_phase(torch, ops, dev, arch, label):
     new_tokens = sum(len(v) for v in out.values())
     admissions = len(prefill_ms)
     line = {"phase": label, "arch": cfg.name, "family": cfg.family, "dtype": cfg.dtype,
+            "dist": None if dist is None else {"dp": dist.dp, "ep": dist.ep,
+                                               "moe_dispatch": dist.moe_dispatch,
+                                               "int8_payload": cfg.moe_dispatch_int8},
             "params": cfg.param_count(), "layers": cfg.num_layers,
             "attention_layers": attn_layers, "slots": SERVE_SLOTS,
             "max_len": SERVE_MAX_LEN,
             "requests": len(out), "prompt_tokens": sum(len(r.prompt) for r in reqs),
             "prefill_tokens": engine.prefill_tokens, "decode_tokens": engine.decode_tokens,
-            "steps": engine.steps, "admissions": admissions, "setup_s": setup_s,
+            "max_new_tokens": max_new, "steps": engine.steps, "admissions": admissions,
+            "setup_s": setup_s,
             "wall_s": wall, "output_tokens_per_s": new_tokens / wall,
             "prefill_ms_per_admission": statistics.mean(prefill_ms),
             "prefill_ms_total": sum(prefill_ms),
@@ -2099,12 +2150,13 @@ def serve_phase(torch, ops, dev, arch, label):
                      "moe_ms_in_decode": sum(a.elapsed_time(b) for a, b in moe_events["decode"]),
                      "moe_calls": sum(map(len, moe_events.values())),
                      "dropped_prefill": int(dropped["prefill"]),
-                     **_prefill_drop_split(torch, prefill_routes, cfg.num_experts),
                      "dropped_decode": int(dropped["decode"]),
                      "bucket_hist_launches": counts["bucket_hist"]})
+        if dist is None:      # the dense dispatch's capacity: recount and split
+            line.update(_prefill_drop_split(torch, prefill_routes, cfg.num_experts))
     emit(line)
     require(len(out) == SERVE_REQUESTS, f"{label}: {len(out)} of {SERVE_REQUESTS} requests served")
-    require(all(len(v) == SERVE_NEW_TOKENS for v in out.values()),
+    require(all(len(v) == max_new for v in out.values()),
             f"{label}: a request ended short of its new tokens")
     require(line["logits_finite"], f"{label}: a logit is not finite")
     require(counts["flash_attention"] == attn_layers * (admissions + engine.steps),
@@ -2115,19 +2167,178 @@ def serve_phase(torch, ops, dev, arch, label):
             f"{label}: prefill / decode kernel launches {counts['flash_attention_prefill']} / "
             f"{counts['flash_attention_decode']}, not {attn_layers} attention layers x prefills "
             f"/ x waves")
-    require(counts["bucket_hist"] == moe_layers * (admissions + engine.steps),
-            f"{label}: {counts['bucket_hist']} bucket_hist launches != {moe_layers} MoE layers "
-            f"x ({admissions} prefills + {engine.steps} decode waves)")
+    require(counts["bucket_hist"] == moe_hist[0]
+            and len(moe_events["prefill"]) == moe_layers * admissions
+            and len(moe_events["decode"]) == moe_layers * engine.steps,
+            f"{label}: {counts['bucket_hist']} bucket_hist launches != {moe_hist[0]} from "
+            f"{moe_layers} MoE layers x ({admissions} prefills + {engine.steps} decode waves)")
     if moe_layers:
         require(line["dropped_decode"] == 0, f"{label}: {line['dropped_decode']} decode drops")
+    if moe_layers and dist is None:
         recount = line["dropped_prefill_prompt_rows"] + line["dropped_prefill_padding_rows"]
         require(recount == line["dropped_prefill"],
                 f"{label}: {line['dropped_prefill']} prefill drops, {recount} recounted from the "
                 f"routes")
     if cfg.family == "ssm":
         chunk_cost(torch, engine, dev)
-    serve_trace(torch, engine, cfg, events)
-    del engine, params
+    if trace:
+        serve_trace(torch, engine, cfg, events)
+    del engine
+    return counts, out, params
+
+
+def moe_hist_launches(cfg, dist, S: int) -> int:
+    """bucket_hist launches of one `moe_ffn` over S positions (batch 1 a data
+    shard): dense dispatch 1; expert parallel all_to_all (S % ep == 0, S >=
+    ep) one a sender in each exchange (two exchanges with the int8 payload),
+    one for every receiver's local bucketing, one for the load-balance
+    counts; gather one a data shard."""
+    if dist is None or dist.moe_dispatch == "dense":
+        return 1
+    ep = dist.ep
+    if S % ep == 0 and S >= ep:
+        return dist.dp * (ep * (2 if cfg.moe_dispatch_int8 else 1) + 1) + 1
+    return dist.dp
+
+
+def moe_ep_hist_shapes(cfg):
+    """serve_moe_ep's bucket_hist calls at its longest prefill (2048 tokens,
+    SERVE_PROMPT_RANGE's top) and a decode wave: (case, ids, k, share of
+    the ids that are the pad value k, or None for ids uniform over k + 1
+    values).  all_to_all: each sender's (token, choice) records by owner (k
+    ep); every receiver's ep x capacity rows by global expert (k E, receiver
+    r's local expert l being r e_local + l), the empty slots the pad value;
+    the load-balance counts of every shard (k ep x E); gather (a decode
+    wave): the records by global expert (k E).  Besides them one receiver's
+    rows by local expert (k e_local), a register-bin instance that the
+    dispatch no longer launches (it buckets every receiver at once)."""
+    ep = MOE_EP_MESH["model"]
+    k, E = cfg.experts_per_tok, cfg.num_experts
+    e_local, S = E // ep, SERVE_PROMPT_RANGE[1]
+    records = S // ep * k
+    cap = int(cfg.moe_capacity_factor * (S // ep) * k / ep) + 8
+    rows = ep * cap
+    empty = 1 - records / rows
+    return [(f"serve_moe_ep exchange, {S}-token prefill: one sender's {records} records, k {ep}",
+             records, ep, 0.0),
+            (f"serve_moe_ep local bucketing: every receiver's {ep * rows} rows, k {E}, "
+             f"{empty:.1%} empty", ep * rows, E, empty),
+            (f"serve_moe_ep load-balance counts: {ep * records} records, k {ep * E}",
+             ep * records, ep * E, 0.0),
+            (f"serve_moe_ep gather, a decode wave: {SERVE_SLOTS * k} records, k {E}",
+             SERVE_SLOTS * k, E, 0.0),
+            (f"one receiver's {rows} rows by local expert, k {e_local}, {empty:.1%} empty "
+             f"(register bins; not launched by the dispatch)", rows, e_local, empty)]
+
+
+def moe_ep_parity(torch, ops, dev):
+    """Check (a) of serve_moe_ep: the deepseek-v2 smoke's MoE layer (f32)
+    under MOE_EP_MESH's expert dispatch at each MOE_EP_PARITY case (S 16:
+    all_to_all, bf16 payload and int8; S 1 and 6: gather), on the card and
+    on the CPU (plain bucket_hist): y within 1e-5 (int8: plus one
+    quantisation step, 1/127 of the output's largest magnitude, and farther
+    than 1e-5 from the full-precision payload's y on the card), dropped
+    equal, bucket_hist launched on the card, no host sync."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import make_dist
+    from repro_torch.models import init_all, moe
+
+    rows = []
+    for S, int8 in MOE_EP_PARITY:
+        cfg = get_smoke_config(MOE_ARCH).with_(moe_dispatch_int8=int8)
+        dist = make_dist(cfg, MOE_EP_MESH)
+        p = init_all(cfg, seed=SERVE_SEED, device="cpu")["blocks"][cfg.first_k_dense]["ffn"]
+        x = torch.randn(2, S, cfg.d_model, generator=torch.Generator().manual_seed(S))
+        want, want_aux = moe.moe_ffn(p, cfg, x, dist)
+        p, x = _to(p, dev), x.to(dev)
+        torch.cuda.synchronize()
+        before = ops.LAUNCHES["bucket_hist"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe.moe_ffn(p, cfg, x, dist)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launched = ops.LAUNCHES["bucket_hist"] - before
+        err = float((y.cpu() - want).abs().max())
+        tol = 1e-5 + (float(want.abs().max()) / 127 if int8 else 0.0)
+        row = {"S": S, "int8": int8, "route": "all_to_all" if S % dist.ep == 0 else "gather",
+               "max_abs_diff": err, "tolerance": tol, "dropped": int(aux["dropped"]),
+               "bucket_hist_launches": launched}
+        if int8:
+            # the int8 payload ran: the card's output is farther from the
+            # full-precision payload's than the f32 tolerance
+            full = moe.moe_ffn(p, cfg.with_(moe_dispatch_int8=False), x, dist)[0]
+            row["diff_from_full_payload"] = float((y - full).abs().max())
+            require(row["diff_from_full_payload"] > 1e-5,
+                    f"serve_moe_ep parity S {S}: the int8 payload left y as the full one's")
+        rows.append(row)
+        require(err <= tol, f"serve_moe_ep parity S {S} int8 {int8}: y differs by {err} > {tol}")
+        require(int(aux["dropped"]) == int(want_aux["dropped"]),
+                f"serve_moe_ep parity S {S}: dropped {int(aux['dropped'])} card, "
+                f"{int(want_aux['dropped'])} CPU")
+        require(launched > 0, f"serve_moe_ep parity S {S}: no bucket_hist launch on the card")
+    emit({"phase": "serve_moe_ep_parity", "arch": get_smoke_config(MOE_ARCH).name,
+          "mesh": MOE_EP_MESH, "cases": rows})
+
+
+def serve_moe_ep_phase(torch, ops, dev, params, dense_out):
+    """deepseek-v2-lite-16b at full width and depth with serve_moe's weights
+    (`params`, still on the card) and requests, behind the Engine with
+    `make_dist(cfg, MOE_EP_MESH)`: 4 expert shards, prefills by all_to_all,
+    decode waves by gather; once with the bf16 payload and once with the
+    int8 one, each request cut to MOE_EP_NEW_TOKENS new tokens.  Before
+    them check (a) (`moe_ep_parity`).  Each run's serve line (serve_phase:
+    tokens/s, prefill and decode ms, MoE ms, drops, bucket_hist launches,
+    peak) and a line with the share of its greedy tokens equal to
+    serve_moe's dense-dispatch run (`dense_out`, first MOE_EP_NEW_TOKENS of
+    each request; printed, not required: EP changes the capacity and the
+    sums' order) and check (b): the first admission's first and last MoE
+    layers on their prompt rows (cut to a multiple of 4: all_to_all), EP
+    against dense dispatch within PARITY_BF16_TOL where neither drops (bf16
+    payload; the int8 payload's difference is printed).  Returns the launch
+    counts of the two runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_dist
+    from repro_torch.models import moe
+
+    moe_ep_parity(torch, ops, dev)
+    counts = {}
+    for int8 in (False, True):
+        cfg = get_config(MOE_ARCH).with_(moe_dispatch_int8=int8)
+        dist = make_dist(cfg, MOE_EP_MESH)
+        label = "serve_moe_ep_int8" if int8 else "serve_moe_ep"
+        inputs = []
+        counts[label], out, _ = serve_phase(torch, ops, dev, cfg, label, dist=dist, params=params,
+                                            max_new=MOE_EP_NEW_TOKENS, trace=False,
+                                            moe_inputs=inputs)
+        same = sum(a == b for uid, toks in out.items()
+                   for a, b in zip(toks, dense_out[uid][:MOE_EP_NEW_TOKENS]))
+        greedy = [uid for uid in out if uid not in SERVE_SAMPLED]
+        same_greedy = sum(a == b for uid in greedy
+                          for a, b in zip(out[uid], dense_out[uid][:MOE_EP_NEW_TOKENS]))
+        layers = []
+        for li in (0, len(inputs) - 1):
+            p, x, n = inputs[li]
+            x = x[:, :n - n % dist.ep]
+            y, aux = moe.moe_ffn(p, cfg, x, dist)
+            want, want_aux = moe.moe_ffn(p, cfg, x)
+            layers.append({"moe_call": li, "tokens": x.shape[1], "dropped": int(aux["dropped"]),
+                           "dense_dropped": int(want_aux["dropped"]),
+                           "max_abs_diff": float((y - want).abs().max()),
+                           "dense_max_abs": float(want.abs().max())})
+        line = {"phase": label + "_check", "greedy_tokens_equal_dense": same_greedy,
+                "greedy_tokens": len(greedy) * MOE_EP_NEW_TOKENS,
+                "greedy_share_equal_dense": same_greedy / (len(greedy) * MOE_EP_NEW_TOKENS),
+                "share_equal_dense_all": same / (len(out) * MOE_EP_NEW_TOKENS),
+                "ep_vs_dense_layers": layers, "tolerance": PARITY_BF16_TOL}
+        emit(line)
+        if not int8:
+            checked = [r for r in layers if r["dropped"] == 0 == r["dense_dropped"]]
+            require(checked, f"{label}: every checked layer dropped records")
+            worst = max(r["max_abs_diff"] for r in checked)
+            require(worst <= PARITY_BF16_TOL,
+                    f"{label}: EP differs from dense dispatch by {worst} > {PARITY_BF16_TOL}")
+        require(counts[label]["bucket_hist"] > 0, f"{label}: bucket_hist never launched")
     return counts
 
 

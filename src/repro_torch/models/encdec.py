@@ -16,6 +16,10 @@ Se, hd], "length"}.  `init_cache` holds no cross buffers: prefill adds the
 encoder's K/V of exactly Se keys, computed once (cross-attention has no
 mask, so a longer buffer's zero keys would take weight), and decode_step
 needs a prefill first.
+
+`forward`, `prefill` and `decode_step` take the reference's optional
+`dist` and leave it unused: in the reference it reaches only sharding
+constraints.
 """
 
 from __future__ import annotations
@@ -107,7 +111,7 @@ def _unembed(cfg, params, x):
     return unembed(params["unembed"], x, fp32=cfg.logits_fp32, valid_vocab=cfg.vocab_size)
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, dist=None):
     """batch {enc_embeds [B, Se, d], tokens [B, Sd]} -> (logits [B, Sd, V], zero aux)."""
     tokens = batch["tokens"]
     enc_out = encode(cfg, params, batch["enc_embeds"])
@@ -126,7 +130,7 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     return cache
 
 
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, dist=None):
     """Encode, then the decoder prompt into an empty cache; the cross K/V of
     every layer computed once here and added to the cache.  Returns (last-token logits [B, 1, V], cache)."""
     tokens = batch["tokens"]
@@ -139,7 +143,7 @@ def prefill(cfg, params, batch, cache):
     return _unembed(cfg, params, x[:, -1:]), cache
 
 
-def decode_step(cfg, params, tokens, cache):
+def decode_step(cfg, params, tokens, cache, dist=None):
     """One token per sequence, tokens [B, 1], against the cached cross K/V.
     Returns (logits [B, 1, V], cache)."""
     positions = decode_positions(cache["length"], tokens.shape[1])

@@ -15,6 +15,10 @@ decode cache is {"conv": [L, B, conv_ch, w - 1], "ssm": [L, B, H, P, N],
 sites (the reference's n_groups copies are always equal), int32 0-d or [B]
 per slot in the serve engine; decode positions come from it.  Prefill and
 decode write states and K/V into the cache's buffers in place.
+
+`forward`, `prefill` and `decode_step` take the reference's optional
+`dist` and leave it unused: in the reference it reaches only sharding
+constraints.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ def _shared_block(p, cfg, x, positions, cache=None):
     return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, dist=None):
     """tokens [B, S] -> (logits [B, S, V], zero aux)."""
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens).to(cfg.torch_dtype)
@@ -94,7 +98,7 @@ def _run_cached(cfg, params, tokens, cache, positions):
     return x, dict(cache, length=cache["length"] + tokens.shape[1])
 
 
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, dist=None):
     """The prompt into an empty cache.  Returns (last-token logits [B, 1, V], cache)."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -102,7 +106,7 @@ def prefill(cfg, params, batch, cache):
     return final_logits(cfg, params, x[:, -1:]), cache
 
 
-def decode_step(cfg, params, tokens, cache):
+def decode_step(cfg, params, tokens, cache, dist=None):
     """One token per sequence, tokens [B, 1].  Returns (logits [B, 1, V], cache)."""
     positions = decode_positions(cache["length"], tokens.shape[1])
     x, cache = _run_cached(cfg, params, tokens, cache, positions)

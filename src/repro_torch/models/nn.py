@@ -1,16 +1,37 @@
-"""Parameter initialisers (twin of `repro/models/nn.py::ParamFactory.param`).
+"""Parameter initialisers and the dispatch context (twin of
+`repro/models/nn.py::ParamFactory.param` and `DistContext`).
 
-The reference's mesh plumbing (`shard`, `DistContext`) has no counterpart on
-one card.  Numbers come from an explicit `torch.Generator` on the target
-device, so they differ from the reference's `jax.random` ones; parity tests
-carry the reference's parameters across with `models/convert.py`.
+Numbers come from an explicit `torch.Generator` on the target device, so they
+differ from the reference's `jax.random` ones; parity tests carry the
+reference's parameters across with `models/convert.py`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    """The reference mesh's axis sizes, threaded through the model entry points.
+
+    On one card the mesh's shards are leading dimensions of one device's
+    tensors, so what the model code needs of the reference's `DistContext`
+    is the sizes: `dp`, the product of every axis but "model" (the batch
+    shards), and `ep`, the "model" axis (the expert shards of the
+    "alltoall" MoE dispatch).  `distributed/sharding.py::make_dist` builds
+    one from a mesh shape.  The reference's `mesh`, `rules`, `spec`,
+    `sharding` and `shard` (sharding constraints on a device mesh) have no
+    counterpart on one device, nor has its `attn_mode`: attention keeps the
+    port's own route.
+    """
+
+    dp: int = 1
+    ep: int = 1
+    moe_dispatch: str = "dense"    # "dense" | "alltoall" (expert parallel over ep shards)
 
 
 class ParamFactory:

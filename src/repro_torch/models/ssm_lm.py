@@ -7,6 +7,10 @@ stacks them [L, ...], `models/convert.py` splits them).  The decode cache is
 0-d, or [B] in the serve engine}; max_len never appears.  Prefill and decode
 write the new states into the cache's buffers in place (the reference
 returns new ones) and return the same buffers with "length" + S.
+
+`forward`, `prefill` and `decode_step` take the reference's optional
+`dist` and leave it unused: in the reference it reaches only sharding
+constraints.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ def init_params(cfg, f):
     }
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, dist=None):
     """tokens [B, S] -> (logits [B, S, V], zero aux)."""
     x = embed(params["embed"], batch["tokens"]).to(cfg.torch_dtype)
     for p_l in params["layers"]:
@@ -53,13 +57,13 @@ def _run(cfg, params, tokens, cache, step: bool):
     return x, dict(cache, length=cache["length"] + tokens.shape[1])
 
 
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, dist=None):
     """The prompt from the cache's states.  Returns (last-token logits [B, 1, V], cache)."""
     x, cache = _run(cfg, params, batch["tokens"], cache, step=False)
     return final_logits(cfg, params, x[:, -1:]), cache
 
 
-def decode_step(cfg, params, tokens, cache):
+def decode_step(cfg, params, tokens, cache, dist=None):
     """One token per sequence, tokens [B, 1].  Returns (logits [B, 1, V], cache)."""
     x, cache = _run(cfg, params, tokens, cache, step=True)
     return final_logits(cfg, params, x), cache

@@ -19,12 +19,14 @@ f32, as the reference's `_accumulate` does; `forward` returns them, and
 prefill and decode drop them, as the reference's do.  `forward_embeds` and
 `prefill_embeds` start from embeddings instead of tokens (the vlm family
 puts its image patches before the token embeddings); `init_attention`,
-`init_mlp` and `zero_aux` serve the other families too.
+`init_mlp` and `zero_aux` serve the other families too.  Every entry point
+takes the reference's optional `dist` (`models/nn.py::DistContext`), which
+reaches the MoE layers' dispatch; attention keeps the port's own route.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -32,7 +34,7 @@ from ..device import resolve_device
 from .layers import (attention, decode_positions, embed, init_mla, mla_attention, mlp, rmsnorm,
                      unembed)
 from .moe import init_moe, moe_ffn
-from .nn import ParamFactory
+from .nn import DistContext, ParamFactory
 
 AUX_KEYS = ("lb_loss", "z_loss", "dropped")
 
@@ -85,7 +87,7 @@ def init_params(cfg, f: ParamFactory) -> Dict[str, Any]:
     }
 
 
-def _block(p, cfg, x, positions, cache, moe: bool):
+def _block(p, cfg, x, positions, cache, moe: bool, dist: Optional[DistContext] = None):
     """One layer: (x, updated cache or None, MoE aux or None)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.kv_lora_rank:
@@ -95,13 +97,13 @@ def _block(p, cfg, x, positions, cache, moe: bool):
     x = x + a
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if moe:
-        f, aux = moe_ffn(p["ffn"], cfg, h)
+        f, aux = moe_ffn(p["ffn"], cfg, h, dist)
     else:
         f, aux = mlp(p["ffn"], h), None
     return x + f, new_cache, aux
 
 
-def _layers(cfg, params, x, positions, cache=None):
+def _layers(cfg, params, x, positions, cache=None, dist=None):
     """Every layer in turn; returns (x, aux summed over the MoE layers)."""
     total = zero_aux(x.device)
     for l, p_l in enumerate(params["blocks"]):
@@ -109,7 +111,7 @@ def _layers(cfg, params, x, positions, cache=None):
         if cache is not None:
             layer = {name: buf[l] for name, buf in cache.items() if name != "length"}
             layer["length"] = cache["length"]
-        x, _, aux = _block(p_l, cfg, x, positions, layer, _is_moe_layer(cfg, l))
+        x, _, aux = _block(p_l, cfg, x, positions, layer, _is_moe_layer(cfg, l), dist)
         if aux is not None:
             total = {k: total[k] + aux[k] for k in AUX_KEYS}
     return x, total
@@ -121,16 +123,17 @@ def final_logits(cfg, params, x):
     return unembed(params["unembed"], x, fp32=cfg.logits_fp32, valid_vocab=cfg.vocab_size)
 
 
-def forward_embeds(cfg, params, x):
+def forward_embeds(cfg, params, x, dist: Optional[DistContext] = None):
     """Forward without a cache from embeddings x [B, S, d] -> (logits [B, S, V], aux)."""
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _layers(cfg, params, x, positions)
+    x, aux = _layers(cfg, params, x, positions, dist=dist)
     return final_logits(cfg, params, x), aux
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, dist: Optional[DistContext] = None):
     """Forward without a cache: tokens [B, S] -> (logits [B, S, V], aux)."""
-    return forward_embeds(cfg, params, embed(params["embed"], batch["tokens"]).to(cfg.torch_dtype))
+    x = embed(params["embed"], batch["tokens"]).to(cfg.torch_dtype)
+    return forward_embeds(cfg, params, x, dist)
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, torch.Tensor]:
@@ -148,29 +151,29 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict[str, torch.
     return cache
 
 
-def _run_with_cache(cfg, params, x, cache, positions, last_only: bool):
+def _run_with_cache(cfg, params, x, cache, positions, last_only: bool, dist=None):
     S = x.shape[1]
-    x, _ = _layers(cfg, params, x, positions, cache)
+    x, _ = _layers(cfg, params, x, positions, cache, dist)
     if last_only:
         x = x[:, -1:]  # unembed only the sampled position
     return final_logits(cfg, params, x), dict(cache, length=cache["length"] + S)
 
 
-def prefill_embeds(cfg, params, x, cache):
+def prefill_embeds(cfg, params, x, cache, dist: Optional[DistContext] = None):
     """The prompt's embeddings x [B, S, d] into an empty cache.  Returns
     (last-position logits [B, 1, V], cache)."""
     positions = torch.arange(x.shape[1], device=x.device)
-    return _run_with_cache(cfg, params, x, cache, positions, last_only=True)
+    return _run_with_cache(cfg, params, x, cache, positions, last_only=True, dist=dist)
 
 
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, dist: Optional[DistContext] = None):
     """Process the prompt, filling the cache.  Returns (last-token logits [B,1,V], cache)."""
     x = embed(params["embed"], batch["tokens"]).to(cfg.torch_dtype)
-    return prefill_embeds(cfg, params, x, cache)
+    return prefill_embeds(cfg, params, x, cache, dist)
 
 
-def decode_step(cfg, params, tokens, cache):
+def decode_step(cfg, params, tokens, cache, dist: Optional[DistContext] = None):
     """One token per sequence.  tokens [B, 1].  Returns (logits [B, 1, V], cache)."""
     positions = decode_positions(cache["length"], tokens.shape[1])
     x = embed(params["embed"], tokens).to(cfg.torch_dtype)
-    return _run_with_cache(cfg, params, x, cache, positions, last_only=False)
+    return _run_with_cache(cfg, params, x, cache, positions, last_only=False, dist=dist)

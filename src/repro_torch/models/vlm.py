@@ -6,7 +6,8 @@ the reference: the batch carries precomputed patch embeddings
 "patch_embeds" [B, num_image_tokens, d_model] (`registry.input_specs` draws
 them), which go before the token embeddings through the dense stack of
 `transformer.py`.  Parameters and the decode cache are the dense family's;
-decode is the dense decode.
+decode is the dense decode.  `dist` goes on to the dense stack, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -27,10 +28,10 @@ def _splice(cfg, params, batch):
     return torch.cat([batch["patch_embeds"].to(cfg.torch_dtype), tok], dim=1)
 
 
-def forward(cfg, params, batch):
-    return transformer.forward_embeds(cfg, params, _splice(cfg, params, batch))
+def forward(cfg, params, batch, dist=None):
+    return transformer.forward_embeds(cfg, params, _splice(cfg, params, batch), dist)
 
 
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, dist=None):
     """Prompt = image patches + text tokens; fills the cache with both."""
-    return transformer.prefill_embeds(cfg, params, _splice(cfg, params, batch), cache)
+    return transformer.prefill_embeds(cfg, params, _splice(cfg, params, batch), cache, dist)

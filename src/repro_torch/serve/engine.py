@@ -24,18 +24,27 @@ Iteration-level scheduling on a fixed slot grid, as in the reference:
 Every decode wave runs all max_batch slots, idle ones included; their
 lengths grow past max_len and their cache writes clamp to the last position,
 as the reference's do (see `models/layers.py`).
+
+`dist` (a `DistContext`, `distributed/sharding.py::make_dist`) goes to every
+prefill and decode wave, as in the reference: with moe_dispatch "alltoall"
+a MoE model's experts are dispatched over dist.ep expert shards (a prefill
+of S % ep == 0 and S >= ep tokens by all_to_all, a decode wave by gather).
+The batch is split over dist.dp data shards, which must divide max_batch
+and the one-sequence prefill, so the Engine serves at dp 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.registry import get_model
+from ..models.nn import DistContext
+from ..models.registry import ModelApi, get_model
 from .sampling import SamplingParams, sample
 
 SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
@@ -68,20 +77,34 @@ def _make_cache(cfg, batch: int, max_len: int, device):
     return cache
 
 
+def _bind(api: ModelApi, dist: Optional[DistContext]) -> ModelApi:
+    """The model's prefill and decode_step with `dist` bound, as the
+    reference's jitted calls bind it."""
+    if dist is None:
+        return api
+    return api._replace(prefill=functools.partial(api.prefill, dist=dist),
+                        decode_step=functools.partial(api.decode_step, dist=dist))
+
+
 def _tokens(rows, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(rows, np.int32)).to(device)
 
 
 class Engine:
     def __init__(self, cfg, params, *, max_batch: int = 8, max_len: int = 512,
-                 bucket_prefill: bool = True, device="cuda"):
+                 bucket_prefill: bool = True, device="cuda",
+                 dist: Optional[DistContext] = None):
         if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(f"Engine serves the families {SUPPORTED_FAMILIES}, "
                              f"not {cfg.family!r}")
+        if dist is not None and dist.dp != 1:
+            raise ValueError(f"{dist.dp} data shards must divide max_batch {max_batch} and "
+                             f"the one-sequence prefill: the Engine serves at dp 1")
         self.device = resolve_device(device)
+        self.dist = dist
         self.cfg = cfg
         self.params = params
-        self.api = get_model(cfg)
+        self.api = _bind(get_model(cfg), dist)
         self.max_batch = max_batch
         self.max_len = max_len
         # SSM state integrates pad tokens -> exact-length prefill there
@@ -183,10 +206,10 @@ class Engine:
 
 
 def generate_reference(cfg, params, req: Request, *, max_len: int = 512,
-                       device="cuda") -> List[int]:
+                       device="cuda", dist: Optional[DistContext] = None) -> List[int]:
     """One request, one slot, no batching: the engine must match this."""
     dev = resolve_device(device)
-    api = get_model(cfg)
+    api = _bind(get_model(cfg), dist)
     cache = _make_cache(cfg, 1, max_len, dev)
     prompt = list(req.prompt)
     if len(prompt) > 1:

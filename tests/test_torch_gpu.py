@@ -267,6 +267,48 @@ def test_moe_ffn_on_the_card_makes_no_host_sync(cuda, monkeypatch, over):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S,int8", [(16, False), (1, False), (6, False), (16, True)])
+def test_moe_ffn_expert_parallel_on_the_card_matches_the_cpu(cuda, S, int8):
+    """The deepseek-v2 smoke's MoE layer (f32) under a (1, 4) expert
+    dispatch: all_to_all (S 16, with and without the int8 payload) and
+    gather (S 1, 6) on the card equal the CPU path (plain bucket_hist)
+    within 1e-5, plus one quantisation step of the output (1/127 of its
+    largest magnitude) for int8, whose y is farther than 1e-5 from the
+    full-precision payload's; dropped equal; bucket_hist launched, no host
+    sync."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import make_dist
+    from repro_torch.models import init_all, moe
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(cuda) for k, v in tree.items()}
+
+    cfg = get_smoke_config("deepseek-v2-lite-16b").with_(moe_dispatch_int8=int8)
+    dist = make_dist(cfg, {"data": 1, "model": 4})
+    p = init_all(cfg, seed=0, device="cpu")["blocks"][cfg.first_k_dense]["ffn"]
+    x = torch.randn(2, S, cfg.d_model, generator=torch.Generator().manual_seed(S))
+    want_y, want_aux = moe.moe_ffn(p, cfg, x, dist)
+    p, x = to(p), x.to(cuda)
+    moe.moe_ffn(p, cfg, x, dist)                # builds and loads the kernels
+    torch.cuda.synchronize()
+    before = ops.LAUNCHES["bucket_hist"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_ffn(p, cfg, x, dist)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.LAUNCHES["bucket_hist"] > before
+    atol = 1e-5 + (float(want_y.abs().max()) / 127 if int8 else 0.0)
+    torch.testing.assert_close(y.cpu(), want_y, atol=atol, rtol=0)
+    assert int(aux["dropped"]) == int(want_aux["dropped"])
+    for k in ("lb_loss", "z_loss"):
+        torch.testing.assert_close(aux[k].cpu(), want_aux[k], atol=1e-5, rtol=1e-5)
+    if int8:            # the int8 payload ran: y is not the full-precision payload's
+        full = moe.moe_ffn(p, cfg.with_(moe_dispatch_int8=False), x, dist)[0]
+        assert float((y - full).abs().max()) > 1e-5
+
+
+@pytest.mark.gpu
 def test_rebuilt_library_loads_every_kernel(cuda, tmp_path, monkeypatch):
     """Each source compiles into a fresh library of its own; together they
     export the four graph kernels and the flash attention."""

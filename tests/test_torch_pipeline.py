@@ -182,8 +182,11 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 assert {"repro_torch.serve", "repro_torch.models", "repro_torch.models.moe",
+        "repro_torch.distributed.sharding",
         "repro_torch.launch.serve", "repro_torch.data", "repro_torch.data.walks",
         "repro_torch.data.loader"} <= set(names)
+from repro_torch.distributed.sharding import make_dist
+from repro_torch.models.moe import moe_expert_parallel
 assert {f"repro_torch.core.{m}" for m in ("trace", "blockstore", "shardmap", "transport",
         "corpus", "phases", "external", "chunks", "hostgen", "types", "cluster",
         "jobqueue")} <= set(names)
