@@ -112,7 +112,7 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    prefill kernel's layers x prefills and the decode kernel's layers x
    decode waves; then a
    short window of the same engine under torch.profiler (`serve_trace`: a
-   512-token request a slot, 32 new tokens each; the card's busy share,
+   512-token request a slot, 16 new tokens each; the card's busy share,
    device time by kernel, and the window's prefill and decode ms);
 7. serve_moe phase: the same Engine and requests serving deepseek-v2-lite-16b
    at full width and depth (27 layers, MLA + 64-expert MoE, bf16, random
@@ -136,7 +136,9 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    bucket_hist launches (counted per MoE call) and peak, every logit
    finite, no decode drop, the share of greedy tokens equal to serve_moe's,
    and on the first admission's first and last MoE layers (prompt rows) EP
-   within 1e-1 of dense dispatch where neither drops (bf16 payload);
+   within 1e-1 of dense dispatch where neither drops (bf16 payload); and
+   before them the gather route repeatable: serve_moe's first MoE layer on
+   a decode wave, 10 runs bit-equal (`gather_ep_repeat`);
 8. serve_ssm and serve_hybrid: the same Engine and requests serving
    mamba2-780m (48 Mamba2 layers, no attention: no flash launch) and
    zamba2-2.7b (54 Mamba2 layers, the shared attention block at 9 sites of
@@ -155,9 +157,11 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
 10. the train path (`repro_torch.train`, `launch/train.py`; attention
    through the reference's chunked attention under autograd, never the
    flash kernel, which has no backward): train_parity runs the dense, moe
-   and ssm smokes (f32) 3 steps each on the card and on the CPU from the
-   same params and batch (losses within 1e-4 relative, params within 1e-3,
-   grad norms finite, no flash launch), checks that the flash kernel
+   and ssm smokes (f32), and deepseek-v2's smoke under expert-parallel
+   dispatch over 4 expert shards, 3 steps each on the card and on the CPU
+   from the same params and batch (losses within 1e-4 relative, params
+   within 1e-3, grad norms finite, no flash launch, the MoE ones launch
+   bucket_hist), checks that the flash kernel
    refuses inputs that need a gradient, restores a bf16 smoke state saved
    from the card (async) leaf for leaf, and resumes launch/train.py from
    its --ckpt-dir to the uninterrupted run's losses; train_main trains
@@ -171,7 +175,20 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    falling; train_external runs `launch/train.py --data external --scale 12
    --steps 20 --seq 16` on the card (StreamingGenerator, ExternalWalkLoader,
    training): the loss falls and the disk tier's hooks launched their
-   graph kernels.
+   graph kernels; train_moe_ep trains deepseek-v2-lite-16b at full width,
+   depth cut to 4 layers (its dense first layer and 3 MoE layers), under
+   expert-parallel dispatch over 4 expert shards (all_to_all, 16 experts a
+   shard) through launch/perf.py's run_variant, once with the bf16 payload
+   and once with int8: 8 steps of one seeded 4096-token sequence with
+   train_main's optimizer settings, losses finite and falling, no flash
+   launch, bucket_hist launches = MoE layers x launches a moe_ffn x steps,
+   dropped, step ms, peak, mfu and the useful-flops ratio of the step's
+   counted flops, the top kernels; train_main also prints its Roofline and
+   mfu (model flops at B 8 x S 512 over the bf16 peak and its median step);
+11. dryrun: launch/dryrun.py over every arch x shape on the meta device,
+   one line a cell (params and state or cache bytes, whether they fit in
+   80 GB, the largest power-of-two batch, model flops, one-card roofline
+   terms) and a summary line.
 
 Prints the card's name and power limit, one JSON line per check, a
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Any failed
@@ -196,16 +213,11 @@ ROOT = Path(__file__).resolve().parent
 MAIN_SCALE = 26                    # Graph500 "toy": 2^26 vertices, 2^30 edges
 NB = 8
 VARIANT_SCALE = 16
-MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
-# Integer operations per SM and clock: the four schedulers issue 4 x 32
-# thread-instructions, split between the INT32 pipe (64 lanes: shifts, logic,
-# adds, compares) and the FP32 pipe (128 lanes), which runs the integer
-# multiply-adds.  64 alone is beaten by the measured rmat_edges kernel.  The
-# operations of a kernel are its per-thread SASS instructions per item
+# The card's peaks (bytes/s, bf16 and integer operations) and every kernel's
+# bound come from repro_torch.launch.mesh and repro_torch.launch.roofline; the
+# operations of a graph kernel are its per-thread SASS instructions per item
 # (`repro_torch.kernels.sass`), counted in this run's build.
-INT_OPS_PER_SM_CLK = 128
 PLAIN_CHUNK = 1 << 27              # feistel_perm_plain's int64 temporaries, 1 GiB each
-BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 SLEEP_CYCLES = 20_000_000          # ~10 ms of card time ahead of each timed call
 SERVE_ARCH = "internlm2-1.8b"      # launch/serve.py's default architecture
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
@@ -213,7 +225,10 @@ SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
 SERVE_PROMPT_RANGE = (128, 2048)   # prompt lengths of a 1.8B chat / code model
 SERVE_SAMPLED = (3, 7, 11, 15)     # uids that sample (temperature 0.8, top-k 40)
 SERVE_SEED = 0
-TRACE_PROMPT, TRACE_NEW_TOKENS = 512, 32   # serve_trace's window
+# serve_trace's window: a 512-token request a slot, 16 new tokens each (32
+# until the script neared its time limit: the profiler's processing of a
+# window's kernel events took 20-48 s of host time a window at 32)
+TRACE_PROMPT, TRACE_NEW_TOKENS = 512, 16
 MOE_ARCH = "deepseek-v2-lite-16b"   # serve_moe: the MoE + MLA config that fits one card
 # serve_moe_ep: serve_moe's weights and requests over 4 expert shards (the
 # reference mesh's "model" axis on one card), each request cut to
@@ -222,6 +237,7 @@ MOE_ARCH = "deepseek-v2-lite-16b"   # serve_moe: the MoE + MLA config that fits 
 MOE_EP_MESH = {"data": 1, "model": 4}
 MOE_EP_NEW_TOKENS = 16
 MOE_EP_PARITY = ((16, False), (1, False), (6, False), (16, True))   # (S, int8) of the smoke
+GATHER_REPEATS = 10                # gather_ep_repeat: decode waves that must be bit-equal
 SSM_ARCH = "mamba2-780m"            # serve_ssm: attention-free, 48 Mamba2 layers
 HYBRID_ARCH = "zamba2-2.7b"         # serve_hybrid: 54 Mamba2 layers, 9 sites of 32 heads of 80
 ENCDEC_ARCH = "seamless-m4t-large-v2"   # encdec_main: 24 + 24 layers, prefill + decode_step
@@ -246,7 +262,10 @@ PARITY_D80 = dict(d_model=320, num_heads=4, num_kv_heads=4)
 # route.  Card vs CPU: f32 losses to TRAIN_LOSS_RTOL (sums in another order)
 # and params to TRAIN_PARAM_ATOL (Adam's first steps are about sign(g), so a
 # grad near 0 that flips moves its param by up to 2 lr)
-TRAIN_PARITY_ARCHS = ("internlm2-1.8b", "qwen3-moe-235b-a22b", "mamba2-780m")
+# (arch, mesh): the deepseek-v2 smoke trains under expert-parallel dispatch
+# over MOE_EP_MESH's 4 expert shards, the others without a mesh
+TRAIN_PARITY_RUNS = (("internlm2-1.8b", None), ("qwen3-moe-235b-a22b", None),
+                     ("mamba2-780m", None), (MOE_ARCH, MOE_EP_MESH))
 TRAIN_PARITY_STEPS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 3, 4, 16
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-4, 1e-3
 TRAIN_RESUME_STEPS = 8             # launch/train.py: 4 steps, then resumed to 8
@@ -258,6 +277,13 @@ TRAIN_TRACE_STEPS = 1              # train_trace: steps under torch.profiler aft
 # sequences of 16 tokens: the out-of-core corpus costs about a second a hop
 # on the host, so the launcher's default 64 (65 hops) took 75 s of the script
 TRAIN_EXTERNAL_ARGV = ["--data", "external", "--scale", "12", "--steps", "20", "--seq", "16"]
+# train_moe_ep: deepseek-v2-lite-16b at full width over MOE_EP_MESH's 4 expert
+# shards, through launch/perf.py's run_variant (bf16 payload, then int8), one
+# 4096-token sequence (train_4k's length) a step.  Depth cut to its dense
+# first layer and 3 MoE layers: 2.25e9 parameters, about 34 GiB of bf16
+# params and grads, f32 master and moments (27 layers would need about 250 GB)
+TRAIN_MOE_EP_LAYERS, TRAIN_MOE_EP_BATCH, TRAIN_MOE_EP_STEPS = 4, 1, 8
+TRAIN_MOE_EP_VARIANTS = ("baseline", "dispatch_int8")
 TRAIN_SEED = 0
 # deepseek-v2's smoke at the real MLA head widths (q/k 128 + 64, v 128) and
 # routing (64 experts, top-6, unnormalised weights), a few layers; the
@@ -394,6 +420,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.types import GraphConfig
     from repro_torch.kernels import bucket, build, ops, sass
+    from repro_torch.launch import roofline
 
     mark("start")
     dev = torch.device("cuda", 0)
@@ -401,7 +428,7 @@ def main() -> int:
     print(card, flush=True)
     props = torch.cuda.get_device_properties(dev)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    int_ops_per_s = props.multi_processor_count * INT_OPS_PER_SM_CLK * clock_mhz * 1e6
+    int_ops_per_s = roofline.int_ops_per_s(props.multi_processor_count, clock_mhz)
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "sms": props.multi_processor_count, "sm_clock_max_mhz": clock_mhz,
           "int_peak_ops_per_s": int_ops_per_s})
@@ -448,10 +475,6 @@ def main() -> int:
             return 0
         return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
-    def bound(n_bytes: float, n_ops: float):
-        t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S, n_ops / int_ops_per_s
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
     # ------------------------------------------------------------------
     # 1. kernel phase
     # ------------------------------------------------------------------
@@ -471,7 +494,8 @@ def main() -> int:
             line["kernel_ms"] = time_ms(kernel_fn)
             line["plain_ms"] = time_ms(plain_fn, reps=3)
             line["library_ms"] = time_ms(library_fn) if library_fn else None
-            line["bound_ms"], line["bound_by"] = bound(n_bytes, n_ops)
+            line["bound_ms"], line["bound_by"] = roofline.kernel_bound(n_bytes, n_ops,
+                                                                       int_ops_per_s)
             if main:
                 summary[name] = line
             else:
@@ -806,6 +830,11 @@ def main() -> int:
         main_counts[label] = phase(torch, ops, dev)
         torch.cuda.empty_cache()
         mark(label)
+    main_counts.update(train_moe_ep_phase(torch, ops, dev))
+    torch.cuda.empty_cache()
+    mark("train_moe_ep")
+    dryrun_phase()
+    mark("dryrun")
     emit({"phase": "timeline", "seconds": {name: t - _MARKS[i - 1][1]
                                            for i, (name, t) in enumerate(_MARKS) if i},
           "total_s": _MARKS[-1][1] - _MARKS[0][1]})
@@ -986,10 +1015,10 @@ def walks_trace(torch, cfg, offv, adjv):
     """walks_main's walk again, under torch.profiler: the card's busy share
     (kernel and copy time over the wall time; the profiler's host cost makes
     the idle share an upper bound) and the device time by kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import distributed_walks
+    from repro_torch.launch import attribution
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -997,14 +1026,10 @@ def walks_trace(torch, cfg, offv, adjv):
                           walkers_per_shard=WALK_WALKERS, capacity_factor=WALK_CAPACITY_FACTOR)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(ms for _, ms, _ in rows)
+    device_ms = sum(ms for ms, _, _ in attribution.device_rows(prof))
     require(device_ms > 0, "walks_trace: the profiler saw no device time")
-    rows.sort(key=lambda r: -r[1])
     emit({"phase": "walks_trace", "hops": WALK_LENGTH, "wall_ms": wall_ms, "device_ms": device_ms,
-          "busy_share": device_ms / wall_ms,
-          "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:14]]})
+          "busy_share": device_ms / wall_ms, "top_device_ms": top_device_ms(attribution, prof, 14)})
 
 
 def loader_main_phase(torch, dev, cfg, csr_host):
@@ -1244,22 +1269,6 @@ def external_parity_phase(torch, dev):
 DISK_KERNELS = ("rmat_edges", "feistel_perm", "bucket_hist", "relabel_gather")
 
 
-def profiled_kernels(prof) -> dict:
-    """Per graph kernel, the launches and the device ms that torch.profiler
-    recorded (its CUDA kernel rows, matched by the kernel's name)."""
-    from torch.autograd import DeviceType
-
-    out = {k: {"launches": 0, "ms": 0.0} for k in DISK_KERNELS}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for k in DISK_KERNELS:
-            if f"{k}_kernel" in e.key:
-                out[k]["launches"] += e.count
-                out[k]["ms"] += e.self_device_time_total / 1e3
-    return out
-
-
 def disk_line(label, cfg, gen, wall, extra) -> dict:
     """The numbers every disk-tier main run prints."""
     led = gen.ledger.as_dict()
@@ -1292,13 +1301,13 @@ def external_main_phase(torch, ops, dev):
     import tempfile
 
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.external import StreamingGenerator
     from repro_torch.core.pipeline import generate
     from repro_torch.core.shuffle import distributed_shuffle
     from repro_torch.core.types import GraphConfig
+    from repro_torch.launch import attribution
 
     cfg = GraphConfig(scale=DISK_MAIN_SCALE, nb=NB, chunk_edges=DISK_MAIN_CHUNK,
                       shuffle_variant="external", csr_variant="sorted", io_overlap=True)
@@ -1313,9 +1322,8 @@ def external_main_phase(torch, ops, dev):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         counts = dict(ops.LAUNCHES)
-        kernels = profiled_kernels(prof)
-        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA) / 1e3
+        kernels = attribution.profiled_kernels(prof, DISK_KERNELS)
+        device_ms = sum(ms for ms, _, _ in attribution.device_rows(prof))
         line = disk_line("external_main", cfg, gen, wall, {
             "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
             "launches": counts, "kernels": kernels,
@@ -1697,24 +1705,6 @@ def attention_build_phase(sass, lib):
           "instances": found})
 
 
-def _flash_bound(torch, q, k, v, offsets, causal):
-    """(ms, "bytes" or "operations") of the least time for these inputs: each
-    q and output element once, the K/V rows some query sees once; 2 (D + Dv)
-    Hq operations per visible (query, key) pair at the bf16 tensor-core peak
-    (q.k over D, p.v over Dv)."""
-    B, Hq, Sq, D = q.shape
-    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if causal:
-        i = offsets.cpu().long()[:, None] + 1 + torch.arange(Sq)[None, :]
-        pairs = int(i.clamp(0, Skv).sum())
-        kv_rows = int((offsets.cpu().long() + Sq).clamp(0, Skv).sum())
-    else:
-        pairs, kv_rows = B * Sq * Skv, B * Skv
-    n_bytes = q.element_size() * (B * Hq * Sq * (D + Dv) + Hkv * (D + Dv) * kv_rows)
-    t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S, 2 * (D + Dv) * Hq * pairs / BF16_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def flash_phase(torch, ops, dev, g, time_ms):
     """flash_attention against its plain version at the serve path's shapes:
     (a) prefill at full width, (b) the decode wave (both timed, with the
@@ -1744,6 +1734,7 @@ def flash_phase(torch, ops, dev, g, time_ms):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import TOLERANCE, plan, row_error
+    from repro_torch.launch import roofline
 
     bf16, f32 = torch.bfloat16, torch.float32
     B = SERVE_SLOTS
@@ -1879,7 +1870,7 @@ def flash_phase(torch, ops, dev, g, time_ms):
             line["kernel_ms"] = time_ms(kernel)
             line["plain_ms"] = time_ms(plain, reps=3)
             line["library_ms"] = time_ms(library)
-            line["bound_ms"], line["bound_by"] = _flash_bound(torch, q, k, v, off, causal)
+            line["bound_ms"], line["bound_by"] = roofline.flash_bound(q, k, v, off, causal)
             del mask
         emit(line)
         out[key] = line
@@ -2302,6 +2293,7 @@ def serve_moe_ep_phase(torch, ops, dev, params, dense_out):
     from repro_torch.models import moe
 
     moe_ep_parity(torch, ops, dev)
+    gather_ep_repeat(torch, dev, get_config(MOE_ARCH), params)
     counts = {}
     for int8 in (False, True):
         cfg = get_config(MOE_ARCH).with_(moe_dispatch_int8=int8)
@@ -2340,6 +2332,32 @@ def serve_moe_ep_phase(torch, ops, dev, params, dense_out):
                     f"{label}: EP differs from dense dispatch by {worst} > {PARITY_BF16_TOL}")
         require(counts[label]["bucket_hist"] > 0, f"{label}: bucket_hist never launched")
     return counts
+
+
+def gather_ep_repeat(torch, dev, cfg, params):
+    """The gather route is repeatable on the card: serve_moe's first MoE
+    layer (full width, bf16, on the card) under MOE_EP_MESH's dispatch on a
+    decode wave of SERVE_SLOTS tokens, GATHER_REPEATS times: every output
+    bit-equal to the first.  Six experts over four shards put at least two
+    of every token's experts on one shard, whose partial row then sums
+    several records (an atomic scatter-add would sum them in any order)."""
+    from repro_torch.distributed.sharding import make_dist
+    from repro_torch.models import moe
+
+    dist = make_dist(cfg, MOE_EP_MESH)
+    p = params["blocks"][cfg.first_k_dense]["ffn"]
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    x = torch.randn(SERVE_SLOTS, 1, cfg.d_model, generator=g, device=dev).to(cfg.torch_dtype)
+    with torch.no_grad():
+        experts = moe.route(p, cfg, x.reshape(-1, cfg.d_model))[1]
+        owners = torch.sort(experts // (cfg.num_experts // dist.ep), dim=1).values
+        shared = int((owners[:, 1:] == owners[:, :-1]).any(dim=1).sum())
+        ys = [moe.moe_ffn(p, cfg, x, dist)[0] for _ in range(GATHER_REPEATS)]
+    differing = [i for i, y in enumerate(ys) if not torch.equal(y, ys[0])]
+    emit({"phase": "serve_moe_ep_gather_repeat", "tokens": SERVE_SLOTS, "repeats": GATHER_REPEATS,
+          "tokens_with_two_experts_on_a_shard": shared, "runs_differing_from_first": differing})
+    require(shared > 0, "gather_ep_repeat: no token has two experts on one shard")
+    require(not differing, f"gather_ep_repeat: runs {differing} differ from the first")
 
 
 def chunk_cost(torch, engine, dev):
@@ -2496,7 +2514,7 @@ def _prefill_drop_split(torch, routes, E):
 
 def serve_trace(torch, engine, cfg, events):
     """A short window of the same engine under torch.profiler (one request
-    of 512 prompt tokens and 32 new tokens a slot; the card's activity only,
+    of 512 prompt tokens and 16 new tokens a slot; the card's activity only,
     which keeps the profiler's processing on the host short: the line's
     "seconds" against "wall_ms"): the card's busy share (kernel and copy
     time over the window's wall time; the profiler's own host cost makes the
@@ -2504,8 +2522,9 @@ def serve_trace(torch, engine, cfg, events):
     prefills and decode waves with their CUDA-event ms (`events`: the
     engine's timed prefill and decode_step append to it)."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import attribution
 
     reqs = _serve_requests(SERVE_SLOTS, cfg.vocab_size, np.random.default_rng(SERVE_SEED + 1),
                            (TRACE_PROMPT, TRACE_PROMPT), TRACE_NEW_TOKENS, ())
@@ -2518,11 +2537,8 @@ def serve_trace(torch, engine, cfg, events):
         wall_ms = (time.perf_counter() - t) * 1e3
     window = {kind: [a.elapsed_time(b) for a, b in v[before[kind]:]] for kind, v in events.items()}
     # device-side rows only (kernels, copies)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(ms for _, ms, _ in rows)
+    device_ms = sum(ms for ms, _, _ in attribution.device_rows(prof))
     require(device_ms > 0, "serve_trace: the profiler saw no device time")
-    rows.sort(key=lambda r: -r[1])
     emit({"phase": "serve_trace", "arch": cfg.name, "requests": len(reqs),
           "prompt_tokens": TRACE_PROMPT,
           "new_tokens": TRACE_NEW_TOKENS, "prefills": len(window["prefill"]),
@@ -2530,7 +2546,13 @@ def serve_trace(torch, engine, cfg, events):
           "decode_ms": sum(window["decode"]),
           "wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
           "seconds": time.perf_counter() - t0,
-          "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:10]]})
+          "top_device_ms": top_device_ms(attribution, prof, 10)})
+
+
+def top_device_ms(attribution, prof, n: int) -> list:
+    """The n kernels and copies with the most device time in a profile."""
+    return [{"name": name[:90], "ms": ms, "calls": c}
+            for ms, name, c in attribution.top_bytes(prof, n)]
 
 
 def _train_state_pair(dev, arch):
@@ -2553,8 +2575,10 @@ def _train_state_pair(dev, arch):
 
 def train_parity_phase(torch, ops, dev):
     """The train path on the card against the CPU: for each of
-    TRAIN_PARITY_ARCHS (dense, moe, ssm; f32 smokes) TRAIN_PARITY_STEPS
-    steps of make_train_step from the same params and batch on both, losses
+    TRAIN_PARITY_RUNS (dense, moe, ssm; f32 smokes; and deepseek-v2's
+    smoke under expert-parallel dispatch over 4 expert shards)
+    TRAIN_PARITY_STEPS steps of make_train_step from the same params and
+    batch on both, losses
     within TRAIN_LOSS_RTOL, final params within TRAIN_PARAM_ATOL, every
     grad_norm finite, no flash_attention launch (the train route is the
     reference's chunked attention); the flash kernel refuses inputs that
@@ -2565,6 +2589,7 @@ def train_parity_phase(torch, ops, dev):
     import tempfile
 
     from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import make_dist
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.train import main as train_cli
     from repro_torch.models import input_specs
@@ -2572,9 +2597,9 @@ def train_parity_phase(torch, ops, dev):
 
     t0 = time.perf_counter()
     rows = []
-    for arch in TRAIN_PARITY_ARCHS:
+    for arch, mesh in TRAIN_PARITY_RUNS:
         cfg, ocfg, cpu_state, card_state, cpu_batch, card_batch = _train_state_pair(dev, arch)
-        step_fn = make_train_step(cfg, ocfg)
+        step_fn = make_train_step(cfg, ocfg, make_dist(cfg, mesh) if mesh else None)
         losses = {"cpu": [], "card": []}
         norms = []
         ops.reset_launches()
@@ -2589,7 +2614,7 @@ def train_parity_phase(torch, ops, dev):
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
         param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in
                         zip(tree.leaves(card_state.params), tree.leaves(cpu_state.params)))
-        row = {"arch": arch, "family": cfg.family, "losses_card": losses["card"],
+        row = {"arch": arch, "family": cfg.family, "mesh": mesh, "losses_card": losses["card"],
                "losses_cpu": losses["cpu"], "loss_max_rel": loss_rel,
                "param_max_abs": param_err, "grad_norms_card": norms,
                "flash_launches": counts["flash_attention"],
@@ -2662,13 +2687,17 @@ def train_main_phase(torch, ops, dev):
     step TRAIN_TIMED_FROM on, tokens/s = B S / step time, and the same over
     the host's wall time of those steps (their batches' production and any
     stall between steps included: the end-to-end rate), peak memory from
-    the phase's start.  The losses are finite and the mean of the last 3 is
+    the phase's start; step 0's Roofline (`roofline.from_measured`: its
+    flops counted) and the measured share of the bf16 peak, mfu =
+    model_flops_for_cell at B x S / (989e12 x the median step).  The losses are finite and the mean of the last 3 is
     below the first; flash_attention is never launched.  Returns the launch
     counts of the run."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.core.pipeline import generate
     from repro_torch.core.types import GraphConfig
     from repro_torch.data import LoaderConfig, WalkLoader
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import BF16_OPS_PER_S
     from repro_torch.train import OptimConfig, init_state, make_train_step, tree
     from repro_torch.train import optim as optim_lib
 
@@ -2708,6 +2737,8 @@ def train_main_phase(torch, ops, dev):
         return out
 
     metrics = []
+    model_flops = roofline.model_flops_for_cell(
+        cfg, ShapeSpec("train_main", TRAIN_SEQ, TRAIN_BATCH, "train"))
     optim_lib.apply_updates = timed_updates
     try:
         t = time.perf_counter()
@@ -2717,7 +2748,11 @@ def train_main_phase(torch, ops, dev):
                 t_from = time.perf_counter()
             batch = loader.batch(step)
             marks.append([event()])
-            state, m = step_fn(state, batch)
+            if step == 0:     # a warm-up step: its flops counted (roofline.from_measured)
+                roof, (state, m) = roofline.from_measured(step_fn, (state, batch),
+                                                          model_flops=model_flops, kind="train")
+            else:
+                state, m = step_fn(state, batch)
             metrics.append(m)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t
@@ -2747,7 +2782,8 @@ def train_main_phase(torch, ops, dev):
             "tokens_per_step": tokens, "tokens_per_s": tokens / (med / 1e3),
             "wall_step_ms": wall_ms, "wall_tokens_per_s": tokens / (wall_ms / 1e3),
             "peak_bytes": peak, "peak_gib": peak / 2**30,
-            "graph_launches": graph_counts, "launches": counts}
+            "graph_launches": graph_counts, "launches": counts,
+            "roofline": roof.as_dict(), "mfu": model_flops / (BF16_OPS_PER_S * med / 1e3)}
     emit(line)
     train_trace(torch, step_fn, state, loader)
     require(all(math.isfinite(x) for x in losses), f"train_main: losses {losses}")
@@ -2763,8 +2799,9 @@ def train_trace(torch, step_fn, state, loader):
     """TRAIN_TRACE_STEPS more steps of train_main under torch.profiler (the
     card's activity only): the card's busy share (kernel and copy time over
     the window's wall time) and the device time by kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import attribution
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2773,15 +2810,13 @@ def train_trace(torch, step_fn, state, loader):
             state, _ = step_fn(state, loader.batch(step))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(ms for _, ms, _ in rows)
+    device_ms = sum(ms for ms, _, _ in attribution.device_rows(prof))
     require(device_ms > 0, "train_trace: the profiler saw no device time")
-    rows.sort(key=lambda r: -r[1])
     emit({"phase": "train_trace", "steps": TRAIN_TRACE_STEPS, "wall_ms": wall_ms,
           "device_ms": device_ms, "busy_share": device_ms / wall_ms,
           "seconds": time.perf_counter() - t0,
-          "top_device_ms": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:12]]})
+          "top_device_ms": top_device_ms(attribution, prof, 12),
+          "device_ms_by_kind": attribution.by_op(prof)})
 
 
 def train_external_phase(torch, ops, dev):
@@ -2807,6 +2842,85 @@ def train_external_phase(torch, ops, dev):
         require(counts[name] > 0, f"train_external: the disk tier never launched {name}")
     require(counts["flash_attention"] == 0, "train_external: flash_attention launched")
     return counts
+
+
+def train_moe_ep_phase(torch, ops, dev):
+    """deepseek-v2-lite-16b at full width (d 2048, MLA 192/128, 64 experts
+    top-6 + 2 shared, vocab 102400), depth cut to TRAIN_MOE_EP_LAYERS, bf16
+    params with f32 master and moments, trained under expert-parallel
+    dispatch over MOE_EP_MESH (16 experts a shard, all_to_all) through
+    launch/perf.py::run_variant at train_4k's 4096 tokens, one sequence a
+    step, train_main's optimizer settings, TRAIN_MOE_EP_STEPS steps of one
+    seeded batch (`input_specs(cfg, "train", 1, 4096, seed=0)`); once per
+    TRAIN_MOE_EP_VARIANTS (the bf16 payload, then the int8 one).  Launch
+    counts set to 0 just before each run and read just after.  Each run's
+    line: losses, lb_loss, dropped, step ms (CUDA events), peak GiB, the
+    Roofline of its first step, mfu, the top kernels; the parameters against
+    `param_count()`.  The losses are finite and the mean of the last 3 below
+    the first; no flash launch; bucket_hist launches = MoE layers x
+    `moe_hist_launches` x steps.  Returns the launch counts of the runs."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import make_dist
+    from repro_torch.launch.perf import run_variant
+    from repro_torch.train import OptimConfig
+
+    cfg_update = {"num_layers": TRAIN_MOE_EP_LAYERS}
+    ocfg = OptimConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    shape = SHAPES["train_4k"]
+    counts, step_ms = {}, {}
+    for variant in TRAIN_MOE_EP_VARIANTS:
+        label = "train_moe_ep" if variant == "baseline" else "train_moe_ep_int8"
+        cfg = get_config(MOE_ARCH).with_(**cfg_update)
+        cfg = cfg.with_(moe_dispatch_int8=variant == "dispatch_int8")
+        moe_layers = cfg.num_layers - cfg.first_k_dense
+        want_hist = (moe_layers * moe_hist_launches(cfg, make_dist(cfg, MOE_EP_MESH), shape.seq_len)
+                     * TRAIN_MOE_EP_STEPS)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        rec = run_variant(MOE_ARCH, shape, variant, cfg_update=cfg_update, ocfg=ocfg,
+                          mesh_shape=MOE_EP_MESH, batch=TRAIN_MOE_EP_BATCH,
+                          steps=TRAIN_MOE_EP_STEPS, device=dev)
+        torch.cuda.synchronize()
+        counts[label] = dict(ops.LAUNCHES)
+        step_ms[variant] = rec["step_ms_median"]
+        losses = rec["losses"]
+        emit({"phase": label, "variant": variant, "mesh": MOE_EP_MESH, "layers": cfg.num_layers,
+              "moe_layers": moe_layers, "params": rec["params"],
+              "param_count": rec["param_count"], "batch": rec["batch"], "seq": rec["seq_len"],
+              "steps": rec["steps"], "losses": losses, "lb_loss": rec["lb_loss"],
+              "dropped": rec["dropped"], "grad_norms": rec["grad_norms"],
+              "step_ms": rec["step_ms"], "step_ms_median": rec["step_ms_median"],
+              "tokens_per_s": rec["tokens_per_s"], "peak_gib": rec["peak_gib"],
+              "mfu": rec["mfu"], "useful_flops_ratio": rec["roofline"]["useful_flops_ratio"],
+              "roofline": rec["roofline"], "top_kernels": rec["top_kernels"],
+              "device_ms_by_kind": rec["device_ms_by_kind"], "launches": counts[label],
+              "bucket_hist_want": want_hist, "wall_s": time.perf_counter() - t,
+              **({"int8_step_ms_over_bf16": rec["step_ms_median"] / step_ms["baseline"]}
+                 if variant != "baseline" else {})})
+        require(all(math.isfinite(x) for x in losses)
+                and statistics.mean(losses[-3:]) < losses[0], f"{label}: losses {losses}")
+        require(counts[label]["flash_attention"] == 0, f"{label}: flash_attention launched")
+        require(counts[label]["bucket_hist"] == want_hist,
+                f"{label}: {counts[label]['bucket_hist']} bucket_hist launches, want {want_hist}")
+        torch.cuda.empty_cache()
+    return counts
+
+
+def dryrun_phase():
+    """launch/dryrun.py over every arch x shape on the meta device: one line
+    a cell (params, state or cache bytes, fit in 80 GB, largest power-of-two
+    batch, model flops and the one-card roofline terms) and a summary; no
+    cell fails."""
+    from repro_torch.launch import dryrun
+
+    t = time.perf_counter()
+    records = dryrun.main(["--arch", "all", "--shape", "all"])
+    emit({"phase": "dryrun", "cells": len(records),
+          "ok": sum(r["status"] == "ok" for r in records),
+          "skipped": sum(r["status"] == "skipped" for r in records),
+          "fit_80gb": [f"{r['arch']} x {r['shape']}" for r in records if r.get("fits_80gb")],
+          "seconds": time.perf_counter() - t})
 
 
 if __name__ == "__main__":

@@ -27,6 +27,18 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as smoke  # noqa: E402
 
 
+def _mesh_constants():
+    """This checkout's launch/mesh.py (it imports nothing of the package),
+    whatever --src points at."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_h100_mesh", ROOT / "src" / "repro_torch" / "launch" / "mesh.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -42,6 +54,7 @@ def main() -> int:
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda", 0)
+    mesh = _mesh_constants()
     print(smoke.nvidia_smi("name,power.limit"), flush=True)
     eps = GraphConfig(scale=smoke.MAIN_SCALE, nb=smoke.NB).edges_per_shard
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -54,7 +67,7 @@ def main() -> int:
             "label": args.label, "shape": case, "n": n, "k": k,
             "kernel_ms": smoke.time_ms(lambda: ops.bucket_hist(dest, k)),
             "bincount_ms": smoke.time_ms(lambda: torch.bincount(dest, minlength=k)),
-            "byte_bound_ms": 4 * (n + k) / smoke.MEM_BYTES_PER_S * 1e3}), flush=True)
+            "byte_bound_ms": 4 * (n + k) / mesh.MEM_BYTES_PER_S * 1e3}), flush=True)
         del dest, got, want
     print(json.dumps({"label": args.label,
                       "empty_kernel_ms": smoke.time_ms(lambda: torch.cuda._sleep(0))}))

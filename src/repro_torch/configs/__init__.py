@@ -5,4 +5,5 @@ hybrid, encdec and vlm.
 the reduced same-family one of the CPU tests.
 """
 
-from .base import ModelConfig, arch_ids, get_config, get_smoke_config  # noqa: F401
+from .base import (  # noqa: F401
+    SHAPES, ModelConfig, ShapeSpec, arch_ids, get_config, get_smoke_config, long_context_supported)

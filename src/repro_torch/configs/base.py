@@ -1,13 +1,15 @@
 """Model configuration schema + registry (copy of `repro/configs/base.py`).
 
 The fields and the published configurations of all ten architectures are
-the reference's; `jdtype` becomes `torch_dtype`.
+the reference's; `jdtype` becomes `torch_dtype`.  `ShapeSpec` and `SHAPES`
+are the reference's (arch x shape) cells' shapes, plain data.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict
 
 import torch
 
@@ -130,6 +132,21 @@ class ModelConfig:
         return int(full - expert_params + active)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
 _ARCH_MODULES = {
     "minitron-8b": "minitron_8b",
     "qwen2.5-32b": "qwen2p5_32b",
@@ -160,3 +177,8 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def long_context_supported(cfg: ModelConfig) -> bool:
+    """long_500k runs only for the sub-quadratic-context families (ssm, hybrid)."""
+    return cfg.family in ("ssm", "hybrid")

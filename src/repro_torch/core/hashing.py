@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from .hostgen import MASK32
 from .rmat import mix32
 from .types import GraphConfig
@@ -43,3 +44,10 @@ def hash_relabel(cfg: GraphConfig, src: torch.Tensor, dst: torch.Tensor):
     """new = H(old): no pv, no communication."""
     return (feistel_permute(src, cfg.scale, cfg.seed).to(src.dtype),
             feistel_permute(dst, cfg.scale, cfg.seed).to(dst.dtype))
+
+
+def hash_permutation_vector(cfg: GraphConfig, device="cuda") -> torch.Tensor:
+    """H materialized as a pv [n] of cfg.vertex_dtype (for cross-validating
+    the relabel paths)."""
+    ids = torch.arange(cfg.n, dtype=torch.int64, device=resolve_device(device))
+    return feistel_permute(ids, cfg.scale, cfg.seed).to(cfg.vertex_dtype)

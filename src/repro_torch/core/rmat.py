@@ -20,3 +20,14 @@ def rmat_edge_block(cfg: GraphConfig, start: int, count: int,
                     device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """int32 (src, dst) of the `count` edges with global ids [start, start+count)."""
     return rmat_edges(cfg, start, count, device)
+
+
+def degree_bias_stat(src: torch.Tensor, dst: torch.Tensor, n: int) -> float:
+    """Fraction of edge endpoints landing in the lowest n/16 vertex ids.
+
+    R-MAT with (a,b,c,d)=(.57,.19,.19,.05) concentrates mass on small ids,
+    the bias the paper removes by shuffling (its section I): raw R-MAT output
+    is biased, relabeled output is not."""
+    lo = n // 16
+    cnt = int((src < lo).sum()) + int((dst < lo).sum())
+    return float(cnt) / float(2 * src.shape[0])

@@ -85,3 +85,11 @@ def shuffle_recompute(cfg: GraphConfig, device="cuda") -> torch.Tensor:
     dev = resolve_device(device)
     ids = torch.arange(cfg.n, dtype=cfg.vertex_dtype, device=dev)
     return graph_perm(cfg.seed, ids, cfg.n, rounds=cfg.feistel_rounds)
+
+
+def pv_is_permutation(pv: torch.Tensor) -> torch.Tensor:
+    """0-d bool tensor: pv is a bijection on [0, n) (each id hit exactly once)."""
+    n = pv.shape[0]
+    hits = torch.zeros(n, dtype=torch.int32, device=pv.device)
+    hits.index_add_(0, pv.to(torch.int64), torch.ones(n, dtype=torch.int32, device=pv.device))
+    return (hits == 1).all()

@@ -832,6 +832,12 @@ class ExchangeServer:
         if self._stopping:
             return
         self._stopping = True
+        # Closing a listening socket does not wake an accept() blocked on it
+        # (Linux); shutting it down first does, so the join returns at once.
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:

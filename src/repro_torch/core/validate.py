@@ -103,3 +103,16 @@ def endpoint_skew(src, dst, n: int, frac: int = 16) -> float:
     lo = n // frac
     cnt = int((src < lo).sum()) + int((dst < lo).sum())
     return cnt / float(src.numel() + dst.numel())
+
+
+def degree_stats(csr, cfg: GraphConfig) -> Dict[str, float]:
+    """Max and mean out-degree over every shard's CSR, and the share of
+    vertices above 4x the mean (a heavy-tail marker); in float64 on the host,
+    as the reference computes them in numpy."""
+    offv = csr.offv.detach().cpu().to(torch.int64).reshape(cfg.nb, cfg.bucket_size + 1)
+    deg = torch.diff(offv, dim=1).reshape(-1).numpy()
+    return {
+        "max_degree": float(deg.max()),
+        "mean_degree": float(deg.mean()),
+        "gini_proxy": float((deg > 4 * deg.mean()).mean()),
+    }

@@ -5,10 +5,16 @@ The reference maps logical axes onto a (pod, data, model) device mesh.  On
 one card that mesh's shards are leading dimensions of one device's tensors,
 so `make_dist` keeps the mesh's sizes: `dp`, the product of the axes other
 than "model", and `ep`, the "model" axis, over which the "alltoall" MoE
-dispatch shards the experts (`models/moe.py`).  The reference's
-`make_rules`, `param_shardings`, `cache_shardings` and `batch_shardings`
-place arrays on devices and wait for the port of the mesh tooling
-(ROADMAP.md queue 1 item 13).
+dispatch shards the experts (`models/moe.py`).  A mesh is given by its
+axis sizes, as `launch/mesh.py::make_production_mesh` returns them.
+
+The reference's `make_rules`, `param_shardings`, `cache_shardings`,
+`batch_shardings` and `dp_size` have no counterpart: they map logical axes
+onto mesh axes and place each array's blocks on devices (tensor, data and
+FSDP sharding), and on one card every array lies whole on the one device.
+`dp` here is the reference's `dp_size`.  For the same reason the reference
+`make_dist`'s `shape` and `fsdp`, which only move those rules, are not
+taken.
 """
 
 from __future__ import annotations
@@ -28,9 +34,7 @@ def make_dist(cfg, mesh_shape: Mapping[str, int], *,
 
     The dispatch defaults to the reference's: "alltoall" for a config with
     experts, else "dense".  An "alltoall" dispatch needs `num_experts` to be
-    a multiple of the "model" axis (the reference's assert in `moe_ffn`).
-    The reference's `shape` (a ShapeSpec) and `fsdp` only move its sharding
-    rules, which have no counterpart on one card."""
+    a multiple of the "model" axis (the reference's assert in `moe_ffn`)."""
     axes = dict(mesh_shape)
     unknown = sorted(set(axes) - set(MESH_AXES))
     if unknown or "model" not in axes:

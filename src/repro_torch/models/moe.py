@@ -54,13 +54,18 @@ Orders pinned where PyTorch would leave them open:
   * dense combine: each token sums its k weighted expert outputs in
     ascending expert order, in the activation dtype, a dropped one adding 0:
     the order of the reference's scatter-add over the expert-sorted
-    records, with no atomics, so the card gives the same sums on every run.
-    The gather mode's scatter-add is an `index_add_` in slot order: on the
-    CPU in that order, on the card in the order of its atomic adds.
+    records, with no atomics, so the card gives the same sums on every run;
+  * gather combine: each shard's partial row sums its records in slot
+    order (expert, then record) in f32, rounded once to the activation dtype
+    (what the CPU's `index_add_` does), with no atomics (the records sorted
+    by row, then added one position at a time), and the ep partials are
+    summed in shard order in the activation dtype: the same sums on every
+    run.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -199,24 +204,45 @@ def _moe_gather_ep(p, cfg, toks: torch.Tensor, weights: torch.Tensor, experts: t
     # shard r buckets the records of its own experts: over every shard, one
     # bucketing by global expert ([E, cap], shard-major)
     b = bucket_by_destination(record, flat_expert, E, cap)
-    rec, valid = b.data, b.valid
-    tok = rec // k
-    out = expert_ffn(p["w_gate"], p["w_up"], p["w_down"], toks[tok])
-    contrib = torch.where(valid[..., None], out * weights.reshape(-1)[rec][..., None], 0)
+    out = expert_ffn(p["w_gate"], p["w_up"], p["w_down"], toks[b.data // k])
+    # each record's weighted output, 0 for a record past its expert's capacity
+    contrib = unbucket(out, b.position) * weights.reshape(-1)[:, None]
     # the token id rides as an activation-dtype column; an id that rounds
     # past the last token is dropped, as the reference's scatter drops it
-    row = tok.to(toks.dtype).to(torch.int64)
-    inside = row < T
-    contrib = torch.where(inside[..., None], contrib, 0)
-    row = torch.where(inside, row, 0).reshape(ep, -1)
-    row = row + T * torch.arange(ep, device=toks.device)[:, None]
-    partial = torch.zeros(ep * T, d, dtype=toks.dtype, device=toks.device)
-    partial.index_add_(0, row.reshape(-1), contrib.reshape(-1, d))
-    partial = partial.reshape(ep, T, d)
+    row = (record // k).to(toks.dtype).to(torch.int64)
+    row = torch.where(row < T, row, T)
+    # Each shard's scatter-add in its slot order (expert, then record), with
+    # no atomics: every row's records sorted by (row, expert, record), then
+    # summed one position at a time into that row of their shard's partial,
+    # in f32 and rounded once, as index_add_ sums a low-precision dtype on
+    # the CPU
+    order = torch.argsort((row * E + flat_expert) * (T * k) + record)
+    sorted_row = row[order]
+    rows = torch.arange(T, device=toks.device)
+    start = torch.searchsorted(sorted_row, rows)
+    end = torch.searchsorted(sorted_row, rows, right=True)
+    at = start[:, None] + torch.arange(k * _tokens_per_row(T, toks.dtype), device=toks.device)
+    rec = order[at.clamp(max=T * k - 1)]                      # [T, L]
+    owner = flat_expert[rec] // (E // ep)
+    mine = (at < end[:, None]) & (owner == torch.arange(ep, device=toks.device)[:, None, None])
+    parts = torch.where(mine[..., None], contrib[rec].float(), 0)   # [ep, T, L, d]
+    partial = torch.zeros(ep, T, d, dtype=torch.float32, device=toks.device)
+    for j in range(parts.shape[2]):
+        partial += parts[:, :, j]
+    partial = partial.to(toks.dtype)
     y = partial[0].clone()                                    # the psum over the ep shards
     for r in range(1, ep):
         y += partial[r]
     return y, b.counts, b.dropped
+
+
+@functools.lru_cache(maxsize=None)
+def _tokens_per_row(T: int, dtype: torch.dtype) -> int:
+    """The most token ids below T that round to one row id in `dtype` (1
+    wherever the dtype holds every id exactly), computed on the host."""
+    ids = torch.arange(T).to(dtype).to(torch.int64)
+    ids = ids[ids < T]
+    return int(torch.unique_consecutive(ids, return_counts=True)[1].max()) if T else 1
 
 
 def _lb_loss(cfg, probs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:

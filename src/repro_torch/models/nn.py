@@ -9,7 +9,7 @@ reference's parameters across with `models/convert.py`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,9 +35,10 @@ class DistContext:
 
 
 class ParamFactory:
-    """Creates parameters of one dtype on one device from one generator."""
+    """Creates parameters of one dtype on one device from one generator (on
+    the meta device, shapes only: no generator, no numbers)."""
 
-    def __init__(self, generator: torch.Generator, device, dtype: torch.dtype):
+    def __init__(self, generator: Optional[torch.Generator], device, dtype: torch.dtype):
         self.generator = generator
         self.device = torch.device(device)
         self.dtype = dtype
@@ -46,6 +47,8 @@ class ParamFactory:
         """`normal`: std scale / sqrt(fan_in), fan_in = shape[-2] (shape[-1] for
         a vector); `embed`: std `scale`; `zeros`; `ones`.  Drawn in f32, then
         cast to the factory's dtype."""
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
         if init in ("normal", "embed"):
             std = scale
             if init == "normal":

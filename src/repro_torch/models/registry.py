@@ -39,10 +39,11 @@ def get_model(cfg) -> ModelApi:
 
 
 def init_all(cfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """Random parameters for a config, drawn on `device` from a generator seeded with `seed`."""
+    """Random parameters for a config, drawn on `device` from a generator
+    seeded with `seed` (on the meta device: their shapes and dtypes)."""
     dev = resolve_device(device)
     api = get_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     return api.init_params(cfg, ParamFactory(gen, dev, cfg.torch_dtype))
 
 
@@ -56,7 +57,8 @@ def input_specs(cfg, kind: str, batch: int, seq_len: int, seed: int = 0,
 
     decode -> {tokens [B, 1]}; prefill -> {tokens} plus, for vlm,
     patch_embeds [B, num_image_tokens, d] (tokens then [B, S - n_img]) and,
-    for encdec, enc_embeds [B, S, d]; train adds labels [B, S]."""
+    for encdec, enc_embeds [B, S, d]; train adds labels [B, S].  On the meta
+    device nothing is drawn: the tensors have the shapes and dtypes alone."""
     if kind not in ("train", "prefill", "decode"):
         raise ValueError(f"kind {kind!r}: train, prefill or decode")
     dev = resolve_device(device)
@@ -64,9 +66,13 @@ def input_specs(cfg, kind: str, batch: int, seq_len: int, seed: int = 0,
     B, S, V = batch, seq_len, cfg.vocab_size
 
     def ints(shape):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=torch.int32, device=dev)
         return torch.from_numpy(rng.integers(0, V, size=shape).astype(np.int32)).to(dev)
 
     def floats(shape):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=cfg.torch_dtype, device=dev)
         x = torch.from_numpy(rng.standard_normal(shape) * 0.02)
         return x.to(dtype=cfg.torch_dtype).to(dev)
 

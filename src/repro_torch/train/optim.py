@@ -15,8 +15,8 @@ the same trees.  The scalars (count, lr, bias corrections, clip factor) stay
 The decay mask comes from a leaf's path as in the reference.  The port's
 list indices (`params["blocks"][i]`) add digits only, which no substring of
 `_NO_DECAY_SUBSTR` contains, so each leaf gets its reference counterpart's
-decision.  `init_abstract` (the reference's dry-run mirror) has no
-counterpart yet (ROADMAP.md queue 1 item 13).
+decision.  `init_abstract` is the state on the meta device, shapes and
+dtypes without storage, for the dry run (`launch/dryrun.py`).
 """
 
 from __future__ import annotations
@@ -83,6 +83,12 @@ def init(cfg: OptimConfig, params) -> OptState:
     device = tree.leaves(params)[0].device
     return OptState(mu=tree.tree_map(zeros, params), nu=tree.tree_map(zeros, params),
                     master=master, count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def init_abstract(cfg: OptimConfig, params) -> OptState:
+    """`init`'s state on the meta device (shapes and dtypes, no storage), for
+    the dry run: the reference's ShapeDtypeStruct mirror."""
+    return init(cfg, tree.tree_map(lambda p: p.to("meta"), params))
 
 
 def global_norm(grads) -> torch.Tensor:

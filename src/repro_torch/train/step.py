@@ -11,12 +11,24 @@ accumulation is a Python loop over microbatches (the reference's
 optional gradient compression (train/compression.py) runs between
 accumulation and the optimizer.  No `torch.compile`: the step runs eagerly.
 
+`dist` (a `models.nn.DistContext` from `distributed/sharding.py::make_dist`)
+is threaded into the loss and the model's forward, as in the reference: an
+MoE model then trains under expert-parallel dispatch over the mesh's "model"
+axis, its shards leading dimensions on the one card (`models/moe.py`).
+Autograd runs through that dispatch: the exchanges' bucketed writes are
+index writes whose gradient is the gather of the same positions (the
+transpose of the reference's `.at[].set`), so a dropped record, written to
+a row past the buckets, gets none; the int8 payload's codes carry no
+gradient (a cast to int8), its scales do, through `amax`, which splits the
+gradient among ties as `jnp.max` does.
+
 The reference's `state_shardings` and `batch_sharding_tree` (NamedShardings
 for a mesh) have no counterpart on one card, as `models/nn.py` has none for
-`shard` / `DistContext`; the step takes no `dist`.  `init_state` draws the
-params from a seeded generator on the device (or takes given ones, e.g.
-`models.convert.params_from_reference`'s) and returns the state alone: the
-reference's ParamFactory exists for its shardings.
+`shard`.  `init_state` draws the params from a seeded generator on the
+device (or takes given ones, e.g. `models.convert.params_from_reference`'s)
+and returns the state alone: the reference's ParamFactory exists for its
+shardings.  On the meta device it gives the state's shapes and dtypes (the
+reference's `mode="shape"`), for the dry run.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from ..models.layers import train_attention
+from ..models.nn import DistContext
 from ..models.registry import ModelApi, get_model, init_all
 from . import optim as optim_lib
 from . import tree
@@ -63,8 +76,8 @@ def make_loss_fn(cfg, api: Optional[ModelApi] = None, lb_coef: float = 1e-2,
                  z_coef: float = 0.0):
     api = api or get_model(cfg)
 
-    def loss_fn(params, batch):
-        logits, aux = api.forward(cfg, params, batch)
+    def loss_fn(params, batch, dist: Optional[DistContext] = None):
+        logits, aux = api.forward(cfg, params, batch, dist)
         xent, ntok = softmax_xent(logits, batch["labels"])
         loss = xent
         if cfg.num_experts:
@@ -92,8 +105,8 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], accum: int):
              for key, x in batch.items()} for i in range(accum)]
 
 
-def make_train_step(cfg, ocfg: optim_lib.OptimConfig, *, accum_steps: int = 1,
-                    compression: Optional[CompressionConfig] = None,
+def make_train_step(cfg, ocfg: optim_lib.OptimConfig, dist: Optional[DistContext] = None, *,
+                    accum_steps: int = 1, compression: Optional[CompressionConfig] = None,
                     lb_coef: float = 1e-2) -> Callable:
     """(state, batch) -> (state, metrics).  The params, moments and master
     copy are updated in place (`optim.apply_updates`); metrics are 0-d
@@ -103,7 +116,7 @@ def make_train_step(cfg, ocfg: optim_lib.OptimConfig, *, accum_steps: int = 1,
     def grad_fn(params, batch):
         leaves = tree.leaves(params)
         with torch.enable_grad(), train_attention():
-            loss, metrics = loss_fn(params, batch)
+            loss, metrics = loss_fn(params, batch, dist)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
@@ -147,7 +160,7 @@ def init_state(cfg, ocfg: optim_lib.OptimConfig, seed: int = 0,
     """A fresh TrainState: params from `init_all(cfg, seed, device)` unless
     given (their device is then the state's), each made a leaf that requires
     grad and that the optimizer updates in place; the optimizer and EF
-    state; step 0."""
+    state; step 0.  With device="meta", every leaf on the meta device."""
     if params is None:
         params = init_all(cfg, seed=seed, device=device)
     for p in tree.leaves(params):

@@ -626,6 +626,104 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_ep_train_step_on_the_card_matches_the_cpu(cuda, int8):
+    """The deepseek-v2 smoke (f32) trained 3 steps under a (1, 4) expert
+    dispatch (all_to_all at S 16), card against CPU from the same params and
+    batch: losses within 1e-4 relative, params within 1e-3, dropped equal,
+    bucket_hist launched (6 a MoE layer's forward, 10 with int8), no flash
+    launch.  With the int8 payload a last-bit difference can move a code by
+    one step (round(x / scale)), as the int8 gradient codec does in
+    tests/test_torch_train.py: losses within its 2e-3 relative, params
+    within 3 steps x 2 lr (a gradient near 0 whose sign flips moves its
+    param by up to 2 lr a step; 1.4e-4 relative loss seen on the card)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import make_dist
+    from repro_torch.models import init_all, input_specs
+    from repro_torch.train import OptimConfig, init_state, make_train_step, tree
+
+    cfg = get_smoke_config("deepseek-v2-lite-16b").with_(moe_dispatch_int8=int8)
+    ocfg = OptimConfig(lr=3e-3, warmup_steps=2, total_steps=100)
+    params = init_all(cfg, seed=0, device="cpu")
+    on_card = tree.tree_map(lambda t: t.to(cuda), params)
+    batch = input_specs(cfg, "train", 4, 16, seed=0, device="cpu")
+    cpu_state = init_state(cfg, ocfg, params=params)
+    card_state = init_state(cfg, ocfg, params=on_card)
+    step = make_train_step(cfg, ocfg, make_dist(cfg, {"data": 1, "model": 4}))
+    before = dict(ops.LAUNCHES)
+    for _ in range(3):
+        cpu_state, want = step(cpu_state, batch)
+        card_state, got = step(card_state, {k: v.to(cuda) for k, v in batch.items()})
+        rtol = 2e-3 if int8 else 1e-4
+        assert abs(float(got["loss"]) - float(want["loss"])) <= rtol * abs(float(want["loss"]))
+        if not int8:
+            assert int(got["dropped"]) == int(want["dropped"])
+    moe_layers = cfg.num_layers - cfg.first_k_dense
+    assert ops.LAUNCHES["bucket_hist"] - before["bucket_hist"] == 3 * moe_layers * (10 if int8 else 6)
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"]
+    atol = 3 * 2 * ocfg.lr if int8 else 1e-3
+    for a, b in zip(tree.leaves(card_state.params), tree.leaves(cpu_state.params)):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= atol
+
+
+@pytest.mark.gpu
+def test_gather_ep_is_repeatable_on_the_card(cuda):
+    """A bf16 decode wave (8 tokens, S 1: the gather route) through the
+    deepseek-v2 smoke's MoE layer at serve_moe's routing (64 experts, top 6)
+    over 4 expert shards: every token has two or more of its experts on one
+    shard, and 20 runs give the same bits; within the bf16 tolerance of the
+    CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import make_dist
+    from repro_torch.models import init_all, moe
+
+    cfg = get_smoke_config("deepseek-v2-lite-16b").with_(
+        num_experts=64, experts_per_tok=6, dtype="bfloat16")
+    dist = make_dist(cfg, {"data": 1, "model": 4})
+    p = init_all(cfg, seed=0, device="cpu")["blocks"][cfg.first_k_dense]["ffn"]
+    x = torch.randn(8, 1, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    x = x.to(torch.bfloat16)
+    want = moe.moe_ffn(p, cfg, x, dist)[0]
+    p = {k: v.to(cuda) if torch.is_tensor(v) else {kk: vv.to(cuda) for kk, vv in v.items()}
+         for k, v in p.items()}
+    x = x.to(cuda)
+    owners = torch.sort(moe.route(p, cfg, x.reshape(8, -1))[1] // 16, dim=1).values
+    assert bool((owners[:, 1:] == owners[:, :-1]).any(dim=1).all())
+    ys = [moe.moe_ffn(p, cfg, x, dist)[0] for _ in range(20)]
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+    torch.testing.assert_close(ys[0].float().cpu(), want.float(), atol=1e-1, rtol=0)
+
+
+@pytest.mark.gpu
+def test_from_measured_counts_the_cpu_flops(cuda):
+    """roofline.from_measured on one train step of the deepseek-v2 smoke
+    under a (1, 4) expert dispatch: the card's counted flops within 1 % of
+    FlopCounterMode's count of the same step on the CPU; bytes the state's."""
+    from repro_torch.configs import ShapeSpec, get_smoke_config
+    from repro_torch.distributed.sharding import make_dist
+    from repro_torch.launch import roofline
+    from repro_torch.models import init_all, input_specs
+    from repro_torch.train import OptimConfig, init_state, make_train_step, tree
+
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    ocfg = OptimConfig()
+    step = make_train_step(cfg, ocfg, make_dist(cfg, {"data": 1, "model": 4}))
+    flops = roofline.model_flops_for_cell(cfg, ShapeSpec("t", 32, 4, "train"))
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree.tree_map(lambda t: t.to(dev), init_all(cfg, seed=0, device="cpu"))
+        state = init_state(cfg, ocfg, params=params)
+        batch = input_specs(cfg, "train", 4, 32, seed=0, device=dev)
+        out[str(dev)], _ = roofline.from_measured(step, (state, batch), model_flops=flops,
+                                                  kind="train")
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert cpu.flops_per_chip > flops
+    assert abs(card.flops_per_chip - cpu.flops_per_chip) <= 0.01 * cpu.flops_per_chip
+    assert card.bytes_per_chip == cpu.bytes_per_chip == 40 * sum(
+        p.numel() for p in tree.leaves(state.params))
+
+
+@pytest.mark.gpu
 def test_checkpoint_of_a_card_state_restores_equal_leaves(cuda, tmp_path):
     """A bf16 smoke TrainState on the card (bf16 leaves stored as 16-bit
     patterns) saved asynchronously and restored leaf for leaf."""

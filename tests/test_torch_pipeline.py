@@ -191,6 +191,13 @@ assert {f"repro_torch.core.{m}" for m in ("trace", "blockstore", "shardmap", "tr
         "corpus", "phases", "external", "chunks", "hostgen", "types", "cluster",
         "jobqueue")} <= set(names)
 assert "repro_torch.launch.cluster" in names
+assert {f"repro_torch.launch.{m}" for m in ("mesh", "roofline", "attribution", "cells", "dryrun",
+        "perf")} <= set(names)
+from repro_torch.launch.perf import run_variant
+from repro_torch.launch.dryrun import main as dryrun_main
+from repro_torch.core import generate, GraphConfig, feistel_permute, pv_is_permutation
+from repro_torch.configs import SHAPES, ShapeSpec, long_context_supported
+from repro_torch.train.optim import init_abstract
 assert {"repro_torch.train", "repro_torch.launch.train"} | {f"repro_torch.train.{m}" for m in (
         "optim", "step", "compression", "checkpoint", "fault", "tree")} <= set(names)
 from repro_torch.train import OptimConfig, TrainState, init_state, make_train_step
