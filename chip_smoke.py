@@ -29,8 +29,13 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    register-bin instance at one receiver's rows), each with
    bincount beside it; it is checked on two slices that start off a 16-byte
    boundary, and a planted fault (one id skipped) must fail the comparison.
-   Before that, the attention library's `ptxas -v` report and SASS give
-   each kernel instance's registers and spills, and the run fails unless
+   `relabel_gather` is timed at the main path's call (one field of the ring
+   relabel: 8 sorted rows of 2^27 keys against all of pv, one launch), at
+   one ring round's segment (the call before that) and at a disk-tier join
+   segment; `feistel_perm` at 2^30 ids and at a disk-tier chunk; the disk
+   tier's calls beside an empty kernel.  Before that, the attention
+   library's `ptxas -v` report and SASS give each kernel instance's
+   registers and spills, and the run fails unless
    every prefill instance issues HGMMA and UTMALDG and every decode instance
    an asynchronous copy (UBLKCP or LDGSTS), unless no decode and no
    `bucket_hist` instance spills, and unless MLA's (192, 128) and
@@ -44,7 +49,8 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    empty allocator cache and once warm, launch counts set to 0 just before
    and read just after each, validated on the card; then the same for the
    communication-free variant (shuffle_variant="recompute"), the main path's
-   user of the Feistel kernel.  The graph kernels' bounds count the
+   user of the Feistel kernel (the ring relabel launches relabel_gather once
+   a field: 2 a run, else the run fails).  The graph kernels' bounds count the
    per-thread SASS instructions of this build (`repro_torch.kernels.sass`);
    then walks_main: distributed_walks over the warm run's CSR, 2^20 walkers
    per shard (2^23 walks), length 80, capacity factor 8, launch counts set
@@ -405,6 +411,57 @@ def bucket_ids(torch, g, dev, n: int, k: int, pad):
     return ids
 
 
+def relabel_field(torch, ops, cfg, dev):
+    """The keys of relabel_gather's main-path call: one field of the ring
+    relabel, every shard's R-MAT src ids with each row sorted ([nb, N], as
+    `core/relabel.py::_relabel_field_ring` hands them over)."""
+    eps = cfg.edges_per_shard
+    field = torch.empty(cfg.nb, eps, dtype=torch.int32, device=dev)
+    for bid in range(cfg.nb):
+        field[bid] = torch.sort(ops.rmat_edges(cfg, bid * eps, eps, dev)[0]).values
+    return field
+
+
+def ring_segment(torch, field, B: int):
+    """The keys of shard 0's sorted src row that fall in shard 1's pv chunk
+    [B, 2B): one ring round's segment, the call the ring relabel made once
+    per (round, shard) before it became one launch a field."""
+    bounds = torch.tensor([B, 2 * B], dtype=torch.int32, device=field.device)
+    lo, hi = torch.searchsorted(field[0], bounds).tolist()
+    return field[0, lo:hi]
+
+
+def join_segment(torch, g, dev, dcfg):
+    """One pv-join segment of the disk tier (`core/chunks.py::gather_chunk`):
+    the sorted keys that fall in one pv run (one shuffle slice, B / nb rows;
+    edge_factor endpoints a vertex) and that run's block.  Returns (keys,
+    block, base)."""
+    rows = dcfg.bucket_size // dcfg.nb
+    base = 5 * rows
+    block = torch.randperm(dcfg.n, generator=g, device=dev)[:rows].to(torch.int32)
+    keys = torch.sort(torch.randint(base, base + rows, (dcfg.edge_factor * rows,), generator=g,
+                                    device=dev, dtype=torch.int32)).values
+    return keys, block, base
+
+
+def gather_bytes(torch, keys, B: int, base: int) -> int:
+    """The bytes relabel_gather must move for `keys` against a table of B
+    entries at `base`: each key read and each output written once, and each
+    table entry that some key reads, once."""
+    seen = torch.zeros(B, dtype=torch.bool, device=keys.device)
+    for part in keys.reshape(-1).split(PLAIN_CHUNK):
+        local = part.to(torch.int64) - base
+        seen[local[(local >= 0) & (local < B)]] = True
+    return 8 * keys.numel() + 4 * int(seen.sum())
+
+
+def relabel_plain_rows(torch, ops, keys, pv, base):
+    """relabel_gather_plain over `keys` in slices of PLAIN_CHUNK ids."""
+    flat = keys.reshape(-1)
+    return torch.cat([ops.relabel_gather_plain(c, pv, base)
+                      for c in flat.split(PLAIN_CHUNK)]).reshape(keys.shape)
+
+
 def main() -> int:
     import torch
 
@@ -450,8 +507,10 @@ def main() -> int:
     ops_per_item = {
         "rmat_edges": sass.per_item_ops(listing, f"rmat_edges_kernelILi{MAIN_SCALE}E"),
         "rmat_edges_disk": sass.per_item_ops(listing, f"rmat_edges_kernelILi{DISK_MAIN_SCALE}E"),
-        "feistel_perm": sass.per_item_ops(listing, f"feistel_perm_kernelILi{rounds}E"),
-        "relabel_gather": sass.per_item_ops(listing, "relabel_gather_kernel"),
+        # the vector instances (the scalar ones run only where the input and
+        # output sit at different offsets from a 16-byte boundary)
+        "feistel_perm": sass.per_item_ops(listing, f"feistel_perm_kernelILi{rounds}ELb0E"),
+        "relabel_gather": sass.per_item_ops(listing, "relabel_gather_kernelILb0E"),
         hist_k8: sass.per_item_ops(listing, hist_k8),
         hist_k64: sass.per_item_ops(listing, hist_k64),
     }
@@ -543,33 +602,42 @@ def main() -> int:
                      lambda: ops.feistel_perm(xe, key, nbits, rounds),
                      lambda: feistel_plain(xe, nbits), size=xe.numel())
 
-    # relabel_gather: a ring round's segment of shard 0's sorted src field
-    # (raw R-MAT ids, so the segment sizes are skewed) against the pv chunk
-    # of shard 1 (base = B > 0); the unsegmented field (pass-through); an
-    # empty segment.
-    src0, _ = ops.rmat_edges(main_cfg, 0, eps, dev)
-    field = torch.sort(src0).values
-    del src0
-    chunk = torch.randperm(main_cfg.n, generator=g, device=dev, dtype=torch.int64)[B:2 * B]
-    chunk = chunk.to(torch.int32)
-    lo, hi = torch.searchsorted(field, torch.tensor([B, 2 * B], dtype=torch.int32, device=dev)).tolist()
-    seg = field[lo:hi]
-    check_kernel("relabel_gather", f"main: ring segment, base B, {hi - lo} keys",
+    # relabel_gather: the main path's call, one field of the ring relabel
+    # ([nb, N] sorted rows against all of pv at base 0; in place on the main
+    # path, here into a second tensor so that every timed call reads sorted
+    # keys); a ring round's segment of shard 0 against the pv chunk of shard
+    # 1 (base B > 0), the main path's call before it became one launch a
+    # field; row 0 whole against that chunk (pass-through); an empty
+    # segment.  pv is drawn from g exactly as the chunk once was, so every
+    # later draw is unchanged.
+    field = relabel_field(torch, ops, main_cfg, dev)
+    pv = torch.randperm(main_cfg.n, generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+    chunk = pv[B:2 * B]
+    out = torch.empty_like(field)
+    check_kernel("relabel_gather", f"main: one ring relabel field, {NB} x {eps} keys against "
+                 f"pv at base 0",
+                 lambda: ops.relabel_gather(field, pv, 0, out=out),
+                 lambda: relabel_plain_rows(torch, ops, field, pv, 0), timed=True,
+                 n_bytes=gather_bytes(torch, field, main_cfg.n, 0),
+                 n_ops=ops_per_item["relabel_gather"] * field.numel(), size=field.numel())
+    del out
+    seg = ring_segment(torch, field, B)
+    check_kernel("relabel_gather", f"ring segment (the call before one launch a field), base B, "
+                 f"{seg.numel()} keys",
                  lambda: ops.relabel_gather(seg, chunk, B),
-                 lambda: ops.relabel_gather_plain(seg, chunk, B), timed=True,
-                 n_bytes=8 * seg.numel() + 4 * chunk.numel(),
-                 n_ops=ops_per_item["relabel_gather"] * seg.numel(),
-                 size=seg.numel())
-    odd = field[: 1_000_003]
+                 lambda: ops.relabel_gather_plain(seg, chunk, B), timed=True, main=False,
+                 n_bytes=gather_bytes(torch, seg, B, B),
+                 n_ops=ops_per_item["relabel_gather"] * seg.numel(), size=seg.numel())
+    odd = field[0, : 1_000_003]
     check_kernel("relabel_gather", "pass-through keys outside the chunk, n 1000003",
                  lambda: ops.relabel_gather(odd, chunk, B),
                  lambda: ops.relabel_gather_plain(odd, chunk, B), size=odd.numel())
     before = ops.LAUNCHES["relabel_gather"]
-    empty = ops.relabel_gather(field[:0], chunk, B)
+    empty = ops.relabel_gather(field[0, :0], chunk, B)
     require(empty.numel() == 0 and ops.LAUNCHES["relabel_gather"] == before,
             "an empty segment must launch nothing")
     emit({"kernel": "relabel_gather", "case": "empty segment", "n": 0, "max_abs_diff": 0})
-    del field, chunk, seg, odd
+    del field, pv, chunk, seg, odd
 
     # bucket_hist: the timed shapes (bucket_hist_shapes), each beside
     # bincount (which counts the pad value as one more bin), the last (no
@@ -648,17 +716,19 @@ def main() -> int:
                  lambda: ops.bucket_hist(dk, NB), lambda: ops.bucket_hist_plain(dk, NB),
                  timed=True, main=False, n_bytes=4 * (C + NB), n_ops=C * ops_per_item[hist_k8],
                  library_fn=lambda: torch.bincount(dk, minlength=NB), size=C)
-    rows = dcfg.bucket_size // NB
-    base = 5 * rows
-    block = torch.randperm(dcfg.n, generator=g, device=dev)[:rows].to(torch.int32)
-    seg = torch.sort(torch.randint(base, base + rows, (dcfg.edge_factor * rows,), generator=g,
-                                   device=dev, dtype=torch.int32)).values
+    seg, block, base = join_segment(torch, g, dev, dcfg)
     check_kernel("relabel_gather", f"disk tier: one pv-join segment, {seg.numel()} keys, "
-                 f"{rows} rows",
+                 f"{block.numel()} rows",
                  lambda: ops.relabel_gather(seg, block, base),
                  lambda: ops.relabel_gather_plain(seg, block, base), timed=True, main=False,
-                 n_bytes=8 * seg.numel() + 4 * rows,
+                 n_bytes=gather_bytes(torch, seg, block.numel(), base),
                  n_ops=ops_per_item["relabel_gather"] * seg.numel(), size=seg.numel())
+    # the floor under the disk tier's two small calls: an empty kernel
+    empty_ms = time_ms(lambda: torch.cuda._sleep(0))
+    for name in ("feistel_perm", "relabel_gather"):
+        shapes[name][-1]["empty_kernel_ms"] = empty_ms
+    emit({"kernel": "feistel_perm, relabel_gather", "case": "an empty kernel beside the disk "
+          "tier's calls (torch.cuda._sleep(0))", "empty_kernel_ms": empty_ms})
     del xr, dk, block, seg
     flash = flash_phase(torch, ops, dev, g, time_ms)
     shapes["flash_attention_prefill"] = [flash[c] for c in "jnpqru"]
@@ -769,6 +839,9 @@ def main() -> int:
     require(main_counts["main_cold"] == main_counts["main"], "cold and warm runs launched differently")
     for name in ("rmat_edges", "relabel_gather", "bucket_hist"):
         require(main_counts["main"][name] > 0, f"main path never launched {name}")
+    require(main_counts["main"]["relabel_gather"] == 2,
+            f"the ring relabel launched relabel_gather {main_counts['main']['relabel_gather']} "
+            "times, not once per field")
     require(main_counts["main_recompute"]["feistel_perm"] > 0,
             "recompute main path never launched feistel_perm")
     torch.cuda.empty_cache()

@@ -3,11 +3,13 @@
 
 relabel_ring (paper-faithful): each shard sorts the field being relabeled
 and the pv chunks stream past it in nb ring rounds.  In a round the keys
-that fall in the resident chunk form one contiguous segment [lo, hi) of the
-sorted field (the paper's merge cursor); one searchsorted finds the segments
-of all rounds, and the `relabel_gather` kernel relabels exactly that segment.  Every key lies in
-exactly one chunk, so this gives the same bits as the reference's masked
-gather over the whole field in every round.
+that fall in the resident chunk form one contiguous segment of the sorted
+field (the paper's merge cursor).  On one device every chunk is resident,
+and the nb segments of a row are the whole row, so the nb^2 segments of a
+field are relabeled by one `relabel_gather` launch over all nb sorted rows
+against pv at base 0.  Every key in [0, n) lies in exactly one chunk, so
+this gives the same bits as the reference's masked gather in every round;
+a key outside [0, n) passes through.
 
 relabel_recompute: elementwise keyed Feistel, no pv (the `feistel_perm`
 kernel).  relabel_alltoall: one bucketed round trip to the owners of the
@@ -28,27 +30,12 @@ from .shuffle import graph_perm
 from .types import GraphConfig
 
 
-def _relabel_field_ring(field: torch.Tensor, pv_sh: torch.Tensor, B: int) -> torch.Tensor:
-    """Relabel field [nb, N] through pv_sh [nb, B] by the ring merge-join."""
-    nb, N = field.shape
+def _relabel_field_ring(field: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
+    """Relabel field [nb, N] through the flat pv [n] by the ring merge-join:
+    all nb ring rounds of every shard in one gather, in place on the sorted
+    field."""
     sorted_field, sort_idx = torch.sort(field, dim=1)       # paper: chunk-sort
-    out_sorted = torch.empty_like(sorted_field)
-    # Every segment bound at once (one host sync): in row bid, the keys of
-    # chunk c are [bounds[bid][c], bounds[bid][c + 1]).  The outer bounds are
-    # 0 and N, so a key outside [0, n) falls in an end segment, where the
-    # kernel passes it through.
-    starts = (torch.arange(1, nb, device=field.device) * B).to(field.dtype)
-    inner = torch.searchsorted(sorted_field, starts.expand(nb, nb - 1).contiguous())
-    bounds = [[0, *row, N] for row in inner.tolist()]
-    for r in range(nb):
-        # After r ring shifts shard bid holds the chunk of shard (bid + r) % nb;
-        # on one device that chunk is read in place instead of being shifted.
-        for bid in range(nb):
-            c = (bid + r) % nb
-            lo, hi = bounds[bid][c], bounds[bid][c + 1]
-            if hi > lo:
-                out_sorted[bid, lo:hi] = relabel_gather(sorted_field[bid, lo:hi], pv_sh[c], c * B)
-    del sorted_field
+    out_sorted = relabel_gather(sorted_field, pv, 0, out=sorted_field)
     # scatter back to generation order
     return torch.empty_like(field).scatter_(1, sort_idx, out_sorted)
 
@@ -60,10 +47,9 @@ def _shards(x: torch.Tensor, nb: int) -> torch.Tensor:
 def relabel_ring(cfg: GraphConfig, src: torch.Tensor, dst: torch.Tensor,
                  pv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Paper-faithful relabel: dst pass, then src pass.  Returns [nb, N] each."""
-    nb, B = cfg.nb, cfg.bucket_size
-    pv_sh = _shards(pv, nb)
-    new_dst = _relabel_field_ring(_shards(dst, nb), pv_sh, B)
-    new_src = _relabel_field_ring(_shards(src, nb), pv_sh, B)
+    nb = cfg.nb
+    new_dst = _relabel_field_ring(_shards(dst, nb), pv.reshape(-1))
+    new_src = _relabel_field_ring(_shards(src, nb), pv.reshape(-1))
     return new_src, new_dst
 
 

@@ -44,7 +44,7 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     "rmat_edges_launch": [_P, _P, _LL, _U, _U, _I, _U, _U, _U, _P],
     "feistel_perm_launch": [_P, _P, _LL, _I, _I, ctypes.POINTER(_U), _P],
-    "relabel_gather_launch": [_P, _P, _P, _LL, _LL, _LL, _P],
+    "relabel_gather_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _P],
     "bucket_hist_launch": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
     "flash_attention_launch": [_P] * 8 + [_I] * 14 + [ctypes.c_float, _P],
 }

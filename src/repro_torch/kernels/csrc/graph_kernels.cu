@@ -71,60 +71,180 @@ rmat_edges_kernel(int32_t* __restrict__ src, int32_t* __restrict__ dst, int64_t 
 }
 
 // ---------------------------------------------------------------------------
-// feistel_perm: one thread per element, the rounds unrolled (ROUNDS is a
-// template parameter; the count is even, at most 8).  Keyed unbalanced
-// Feistel over mix32 on [0, 2^nbits); round keys are folded on the host (the
-// port's feistel_round_key) and passed by value.  `rounds` mix32 per element
-// against 8 bytes moved.
+// The two elementwise int32 maps, feistel_perm and relabel_gather, share one
+// skeleton.  Both are bound by bytes (4 read + 4 written per id; the
+// relabel's table once more).  Their first design ran one thread per id: one
+// 4-byte load in flight a thread and 64-bit index arithmetic, 59-61 % of the
+// byte bound on the main path's arrays and 11-28 % on the disk tier's small
+// ones.  Here each thread issues up to kMapVecs independent 16-byte loads
+// per tile (4096 ids a 256-thread block), computes, and issues as many
+// 16-byte stores; offsets inside a tile are 32-bit; the grid is as many
+// blocks as fit on the card's SMs at once, each walking tiles at a stride of
+// the grid.  An array too small to give every resident block a tile of
+// kMapVecs vectors a thread gets tiles of 2 or 1 (`vecs`), so that more of
+// its loads are in flight at once.
+//
+// Shape: `rows` rows of `row_len` ids, row r at r * row_len (a flat array is
+// one row).  Tile t belongs to row t % rows, so the grid walks every row side
+// by side (see relabel_gather).  Each row has `head` ids before its first
+// 16-byte boundary and `tail` after its last whole vector (each at most 3;
+// the same in every row, since row_len % 4 == 0 where rows > 1): block 0
+// maps those one by one, rows * (head + tail) <= kMapThreads of them.  Where
+// the input and output sit at different offsets from a 16-byte boundary no
+// vector fits both, and the SCALAR instance maps the flat array with
+// kMapVecs * 4 independent 4-byte loads a thread instead.  `out` may be
+// `in` itself: each id is read and then written by the same thread (hence no
+// __restrict__ on the two).
+// ---------------------------------------------------------------------------
+constexpr int kMapThreads = 256;
+constexpr int kMapVecs = 4;                                  // int4 loads per thread per tile
+constexpr int kMapScalarIds = 4 * kMapVecs;                  // the SCALAR instance's ids a thread
+constexpr int kMapMaxRows = kMapThreads / 6;                 // head + tail <= 6 ids a row
+constexpr long long kMapMaxIds = 1LL << 33;                  // whole vectors fit uint32
+
+struct MapShape {
+  int64_t row_len;   // ids a row, and the stride between rows
+  int rows;
+  int head;          // ids before each row's first 16-byte boundary
+  int tail;          // ids after each row's last whole vector
+  uint32_t nvec;     // whole vectors a row
+  int vecs;          // vectors a thread per tile: 1, 2 or kMapVecs
+  uint32_t tiles;    // tiles of all rows together
+};
+
+template <bool SCALAR, typename F>
+__device__ __forceinline__ void map_ids(const int32_t* in, int32_t* out, const MapShape& s,
+                                        const F& f) {
+  if constexpr (SCALAR) {
+    const int64_t n = s.row_len * s.rows;
+    const int64_t step = static_cast<int64_t>(gridDim.x) * kMapThreads * kMapScalarIds;
+    for (int64_t b = static_cast<int64_t>(blockIdx.x) * kMapThreads * kMapScalarIds; b < n;
+         b += step) {
+      const int32_t* src = in + b;
+      int32_t* dst = out + b;
+      const int left = n - b < kMapThreads * kMapScalarIds ? static_cast<int>(n - b)
+                                                            : kMapThreads * kMapScalarIds;
+      int32_t v[kMapScalarIds];
+#pragma unroll
+      for (int u = 0; u < kMapScalarIds; ++u) {
+        const int i = u * kMapThreads + threadIdx.x;
+        if (i < left) v[u] = __ldcs(src + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kMapScalarIds; ++u) {
+        const int i = u * kMapThreads + threadIdx.x;
+        if (i < left) __stcs(dst + i, f(v[u]));
+      }
+    }
+  } else {
+    const int edge = s.head + s.tail;
+    if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < s.rows * edge) {
+      const int r = threadIdx.x / edge, k = threadIdx.x - r * edge;
+      const int64_t at = r * s.row_len +
+                         (k < s.head ? k : s.head + 4 * static_cast<int64_t>(s.nvec) + k - s.head);
+      out[at] = f(in[at]);
+    }
+    const uint32_t rows = static_cast<uint32_t>(s.rows);
+    const uint32_t tile = kMapThreads * s.vecs;
+    for (uint32_t t = blockIdx.x; t < s.tiles; t += gridDim.x) {
+      const uint32_t r = t % rows, j = t / rows;
+      const int64_t at = r * s.row_len + s.head + 4 * static_cast<int64_t>(j) * tile;
+      const int4* src = reinterpret_cast<const int4*>(in + at);
+      int4* dst = reinterpret_cast<int4*>(out + at);
+      const uint32_t rest = s.nvec - j * tile;
+      const int left = static_cast<int>(rest < tile ? rest : tile);   // i < left: u < vecs
+      int4 v[kMapVecs];
+#pragma unroll
+      for (int u = 0; u < kMapVecs; ++u) {
+        const int i = u * kMapThreads + threadIdx.x;
+        if (i < left) v[u] = __ldcs(src + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kMapVecs; ++u) {
+        if (u * kMapThreads + static_cast<int>(threadIdx.x) < left) {   // no work on empty lanes
+          v[u].x = f(v[u].x);
+          v[u].y = f(v[u].y);
+          v[u].z = f(v[u].z);
+          v[u].w = f(v[u].w);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kMapVecs; ++u) {
+        const int i = u * kMapThreads + threadIdx.x;
+        if (i < left) __stcs(dst + i, v[u]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// feistel_perm: keyed unbalanced Feistel over mix32 on [0, 2^nbits), ROUNDS
+// (even, at most 8) unrolled.  The round keys and both half-width masks are
+// folded on the host (the port's feistel_round_key; `hi_mask` for the even
+// rounds, `lo_mask` for the odd ones), so a round is mix32 and two logic ops
+// with no width swap.  ROUNDS x ~10 integer ops per id against 8 bytes moved:
+// bound by bytes at 4 rounds (the old design, one id a thread, reached 59 %
+// of that bound at 2^30 ids and 28 % at the disk tier's 2^20).
 // ---------------------------------------------------------------------------
 struct RoundKeys {
   uint32_t k[kMaxFeistelRounds];
 };
 
-__device__ __forceinline__ uint32_t low_mask(int w) {
-  return w >= 32 ? 0xFFFFFFFFu : ((1u << w) - 1u);
-}
-
 template <int ROUNDS>
-__global__ void __launch_bounds__(kThreads)
-feistel_perm_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out, int64_t n,
-                    int nbits, RoundKeys rk) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int lo_bits = nbits / 2;
-  const uint32_t v = static_cast<uint32_t>(x[i]);
-  uint32_t L = v >> lo_bits;
-  uint32_t R = v & low_mask(lo_bits);
-  int wL = nbits - lo_bits, wR = lo_bits;
+struct FeistelMap {
+  RoundKeys rk;
+  int lo_bits;
+  uint32_t hi_mask, lo_mask;
+
+  __device__ __forceinline__ int32_t operator()(int32_t x) const {
+    const uint32_t v = static_cast<uint32_t>(x);
+    uint32_t L = v >> lo_bits, R = v & lo_mask;
 #pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {
-    const uint32_t F = mix32(R ^ rk.k[r]);
-    const uint32_t nR = (L ^ F) & low_mask(wL);
-    L = R;
-    R = nR;
-    const int t = wL;
-    wL = wR;
-    wR = t;
+    for (int r = 0; r < ROUNDS; ++r) {
+      const uint32_t nR = (L ^ mix32(R ^ rk.k[r])) & (r % 2 ? lo_mask : hi_mask);
+      L = R;
+      R = nR;
+    }
+    return static_cast<int32_t>((L << lo_bits) | R);
   }
-  out[i] = static_cast<int32_t>((L << lo_bits) | R);
+};
+
+template <int ROUNDS, bool SCALAR>
+__global__ void __launch_bounds__(kMapThreads)
+feistel_perm_kernel(const int32_t* x, int32_t* out, MapShape s, FeistelMap<ROUNDS> f) {
+  map_ids<SCALAR>(x, out, s, f);
 }
 
 // ---------------------------------------------------------------------------
-// relabel_gather: one thread per key, out = chunk[key - base] for keys in
-// [base, base + B), the key itself otherwise.  The chunk (B = 2^23 int32 at
-// scale 26, nb 8) is far beyond shared memory, so it is gathered from global
-// memory; the keys are sorted, so neighbouring threads read neighbouring or
-// equal chunk entries and the gather is close to a streaming read.  Bound by
-// bytes: 4 read + 4 written per key, plus the chunk once.
+// relabel_gather: out = chunk[key - base] for keys in [base, base + B), the
+// key itself otherwise.  The table (a pv chunk of 2^23 ids, or all of pv,
+// 2^26, when the ring relabel runs as one launch) is far beyond shared
+// memory, so it is gathered through L1 from global memory; the keys are
+// sorted, so neighbouring ids read neighbouring or equal table entries.
+// Bound by bytes: 4 read + 4 written per key, plus the table entries the
+// keys touch.  The old design (one key a thread, one launch per ring
+// segment) reached 61 % of that bound on a ring segment and 11 % on a
+// 2^18-key pv-join segment.  Beyond the shared skeleton: keys and outputs
+// bypass L1 and are marked evict-first in L2 (ld/st .cs), so the table keeps
+// its L2 lines; and a [rows, N] field of sorted rows (the ring relabel's
+// nb shards) runs with its rows' tiles interleaved, so the blocks in flight
+// at any moment read one stretch of the table, which each line of it is
+// fetched from device memory for about once instead of once a row.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-relabel_gather_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ chunk,
-                      int32_t* __restrict__ out, int64_t n, int64_t B, int64_t base) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t key = keys[i];
-  const int64_t local = static_cast<int64_t>(key) - base;
-  out[i] = (local >= 0 && local < B) ? __ldg(chunk + local) : key;
+struct GatherMap {
+  const int32_t* chunk;
+  int64_t B, base;
+
+  __device__ __forceinline__ int32_t operator()(int32_t key) const {
+    const int64_t local = static_cast<int64_t>(key) - base;
+    return (local >= 0 && local < B) ? __ldg(chunk + local) : key;
+  }
+};
+
+template <bool SCALAR>
+__global__ void __launch_bounds__(kMapThreads)
+relabel_gather_kernel(const int32_t* keys, int32_t* out, MapShape s, GatherMap f) {
+  map_ids<SCALAR>(keys, out, s, f);
 }
 
 // ---------------------------------------------------------------------------
@@ -289,6 +409,63 @@ bucket_hist_kernel(const int32_t* __restrict__ dest, int head, int64_t nvec, int
   if (threadIdx.x == 0) *ticket = 0;   // ready for the next launch
 }
 
+// The MapShape of a [rows, row_len] map from `in` to `out`; true where no
+// vector fits both (the SCALAR instance, which reads the flat array).  Rows
+// that would not keep every row's head alike, or too many of them, are
+// mapped as one flat row.
+bool map_shape(const int32_t* in, const int32_t* out, long long rows, long long row_len,
+               MapShape* s) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(in), b = reinterpret_cast<uintptr_t>(out);
+  if (rows > 1 && (row_len % 4 || rows > kMapMaxRows)) {
+    row_len *= rows;
+    rows = 1;
+  }
+  s->rows = static_cast<int>(rows);
+  s->row_len = row_len;
+  const bool scalar = (a % 16) != (b % 16);
+  const long long head = scalar ? 0 : (16 - a % 16) % 16 / 4;
+  s->head = static_cast<int>(head < row_len ? head : row_len);
+  s->nvec = scalar ? 0 : static_cast<uint32_t>((row_len - s->head) / 4);
+  s->tail = scalar ? 0 : static_cast<int>(row_len - s->head - 4LL * s->nvec);
+  return scalar;
+}
+
+// Launches the map f over [rows, row_len] ids: the Vector instance, or the
+// Scalar one where no 16-byte vector fits both `in` and `out`.  The grid is
+// as many blocks as are resident on the card at once (counted once per
+// instance and device), fewer where there are fewer tiles, and at least one,
+// which maps the rows' heads and tails.
+template <typename F, void (*Scalar)(const int32_t*, int32_t*, MapShape, F),
+          void (*Vector)(const int32_t*, int32_t*, MapShape, F)>
+int launch_map(const int32_t* in, int32_t* out, long long rows, long long row_len, const F& f,
+               void* stream) {
+  MapShape s;
+  const bool scalar = map_shape(in, out, rows, row_len, &s);
+  const auto kernel = scalar ? Scalar : Vector;
+  static int resident[2][64] = {};
+  int dev = 0, err = static_cast<int>(cudaGetDevice(&dev));
+  if (err) return err;
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  int& fit = resident[scalar][dev];
+  if (!fit) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMapThreads, 0)))
+      return err;
+    fit = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  // vectors a thread if every resident block took one tile
+  const long long spread = static_cast<long long>(s.nvec) * s.rows / (1LL * fit * kMapThreads);
+  s.vecs = spread >= kMapVecs ? kMapVecs : spread >= 2 ? 2 : 1;
+  const uint32_t tile = kMapThreads * s.vecs;
+  s.tiles = (s.nvec + tile - 1) / tile * s.rows;
+  const long long per_block = kMapThreads * kMapScalarIds;
+  const long long work = scalar ? (s.row_len * s.rows + per_block - 1) / per_block : s.tiles;
+  const unsigned grid = static_cast<unsigned>(work < 1 ? 1 : work < fit ? work : fit);
+  kernel<<<grid, kMapThreads, 0, static_cast<cudaStream_t>(stream)>>>(in, out, s, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -325,32 +502,37 @@ int rmat_edges_launch(void* src, void* dst, long long count, unsigned start, uns
 
 int feistel_perm_launch(const void* x, void* out, long long n, int nbits, int rounds,
                         const unsigned* keys, void* stream) {
-  if (rounds < 0 || rounds > kMaxFeistelRounds) return static_cast<int>(cudaErrorInvalidValue);
+  if (rounds < 0 || rounds > kMaxFeistelRounds || nbits < 1 || nbits > 31 || n < 0 ||
+      n >= kMapMaxIds)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int lo_bits = nbits / 2;
   RoundKeys rk{};
   for (int r = 0; r < rounds; ++r) rk.k[r] = keys[r];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t hi_mask = (1u << (nbits - lo_bits)) - 1u, lo_mask = (1u << lo_bits) - 1u;
   const int32_t* in = static_cast<const int32_t*>(x);
   int32_t* o = static_cast<int32_t*>(out);
-  const unsigned grid = grid_for(n);
   switch (rounds) {
-#define FEISTEL_CASE(R)                                                       \
-  case R:                                                                     \
-    feistel_perm_kernel<R><<<grid, kThreads, 0, s>>>(in, o, n, nbits, rk);    \
-    break;
+#define FEISTEL_CASE(R)                                                                    \
+  case R:                                                                                  \
+    return launch_map<FeistelMap<R>, feistel_perm_kernel<R, true>, feistel_perm_kernel<R, false>>( \
+        in, o, 1, n, FeistelMap<R>{rk, lo_bits, hi_mask, lo_mask}, stream);
     FEISTEL_CASE(2) FEISTEL_CASE(4) FEISTEL_CASE(6) FEISTEL_CASE(8)
 #undef FEISTEL_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
-int relabel_gather_launch(const void* keys, const void* chunk, void* out, long long n,
-                          long long chunk_len, long long base, void* stream) {
-  relabel_gather_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(chunk),
-      static_cast<int32_t*>(out), n, chunk_len, base);
-  return static_cast<int>(cudaGetLastError());
+// keys and out: [rows, row_len], contiguous, out disjoint from chunk and
+// either keys itself or disjoint from it; rows > 1 interleaves the rows'
+// tiles (a field of sorted rows).
+int relabel_gather_launch(const void* keys, const void* chunk, void* out, long long rows,
+                          long long row_len, long long chunk_len, long long base, void* stream) {
+  if (rows < 1 || row_len < 0 || rows * row_len >= kMapMaxIds)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_map<GatherMap, relabel_gather_kernel<true>, relabel_gather_kernel<false>>(
+      static_cast<const int32_t*>(keys), static_cast<int32_t*>(out), rows, row_len,
+      GatherMap{static_cast<const int32_t*>(chunk), chunk_len, base}, stream);
 }
 
 // counts [k] from partials [grid, k] (scratch), ticket (one unsigned, 0 on

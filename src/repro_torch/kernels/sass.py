@@ -13,7 +13,10 @@ per warp, not per thread), `NOP`, and the padding after the last `EXIT`.
                         from above)
   grid-stride loop      the instructions of the loop that loads from global
                         memory, divided by the int32 items its loads carry
-                        (a load of w bits carries w / 32: LDG.E.128 four)
+                        (a load of w bits carries w / 32: LDG.E.128 four);
+                        where the loop has 64- or 128-bit loads, its 32-bit
+                        ones are gathers of a table (relabel_gather's) and
+                        carry no item of their own
 
 `opcodes()` gives the base opcodes of each function whose name holds a
 kernel's name (so a check can ask whether the prefill kernel issues HGMMA and
@@ -94,7 +97,8 @@ def per_item_ops(text: str, kernel: str) -> int:
         start = index_of.get(int(t.group(1), 16), i) if t else i
         if start < i:
             loop = [o for _, o, _ in body[start:i + 1]]
-            items = sum(_items(o) for o in loop if o.startswith("LDG"))
+            loads = [_items(o) for o in loop if o.startswith("LDG")]
+            items = sum(w for w in loads if w > 1) or sum(loads)
             if items:
                 return -(-sum(_counted(o) for o in loop) // items)
     last_exit = max(i for i, (_, op, _) in enumerate(body) if op == "EXIT")

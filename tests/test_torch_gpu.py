@@ -98,6 +98,90 @@ def test_relabel_gather_kernel_matches_plain(cuda, base):
     assert ops.relabel_gather(keys[:0], chunk, base).numel() == 0
 
 
+# sizes around the 16-byte vectors and the 4096-id tiles of the two maps
+MAP_SIZES = [1, 3, 4, 5, 1023, 1025, (1 << 20) + 3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [2, 4, 6, 8])
+@pytest.mark.parametrize("nbits", [1, 2, 31])
+@pytest.mark.parametrize("n", MAP_SIZES)
+def test_feistel_kernel_sizes_widths_rounds(cuda, n, nbits, rounds):
+    g = torch.Generator(device="cpu").manual_seed(n * 64 + nbits * 8 + rounds)
+    x = torch.randint(0, 1 << nbits, (n,), generator=g, dtype=torch.int64).to(torch.int32).to(cuda)
+    assert torch.equal(ops.feistel_perm(x, 0x5EED, nbits, rounds),
+                       ops.feistel_perm_plain(x, 0x5EED, nbits, rounds))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [5, 1025, (1 << 20) + 3])
+def test_feistel_kernel_misaligned_input(cuda, offset, n):
+    """An input 1-3 ids off a 16-byte boundary and a fresh (aligned) output:
+    no vector fits both, so the kernel's scalar instance runs."""
+    g = torch.Generator(device="cpu").manual_seed(offset * 7 + n)
+    buf = torch.randint(0, 1 << 26, (n + offset,), generator=g, dtype=torch.int32).to(cuda)
+    x = buf[offset:]
+    assert x.data_ptr() % 16
+    assert torch.equal(ops.feistel_perm(x, 0xF00D, 26), ops.feistel_perm_plain(x, 0xF00D, 26))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key_off,out_off", [(0, 0), (1, 1), (2, 2), (3, 3), (1, 2), (0, 3), (2, 0)])
+@pytest.mark.parametrize("n", MAP_SIZES)
+def test_relabel_gather_kernel_into_views(cuda, n, key_off, out_off):
+    """Keys and outputs 0-3 ids off a 16-byte boundary, aligned alike (the
+    vector path with its scalar head and tail) and differently (the scalar
+    instance); nothing outside the output view is written."""
+    g = torch.Generator(device="cpu").manual_seed(n + 10 * key_off + out_off)
+    chunk = torch.randperm(1 << 12, generator=g).to(torch.int32).to(cuda)
+    kbuf = torch.sort(torch.randint(-3, 3 << 12, (n + 4,), generator=g, dtype=torch.int32)).values
+    keys = kbuf.to(cuda)[key_off:key_off + n]
+    obuf = torch.full((n + 4,), 77, dtype=torch.int32, device=cuda)
+    out = obuf[out_off:out_off + n]
+    before = ops.LAUNCHES["relabel_gather"]
+    got = ops.relabel_gather(keys, chunk, 1 << 12, out=out)
+    assert ops.LAUNCHES["relabel_gather"] == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out, ops.relabel_gather_plain(keys, chunk, 1 << 12))
+    assert bool((obuf[:out_off] == 77).all()) and bool((obuf[out_off + n:] == 77).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,row_len", [(8, 4096), (8, 1001), (3, (1 << 18) + 4), (50, 64)])
+def test_relabel_gather_kernel_rows_and_in_place(cuda, rows, row_len):
+    """[rows, N] sorted keys (rows walked side by side where N % 4 == 0 and
+    rows <= 42, else as one flat row), into a new tensor and in place."""
+    g = torch.Generator(device="cpu").manual_seed(rows * row_len)
+    n = 1 << 16
+    pv = torch.randperm(n, generator=g).to(torch.int32).to(cuda)
+    keys = torch.sort(torch.randint(-2, n + 2, (rows, row_len), generator=g,
+                                    dtype=torch.int32), dim=1).values.to(cuda)
+    want = ops.relabel_gather_plain(keys, pv, 0)
+    assert torch.equal(ops.relabel_gather(keys, pv, 0), want)
+    assert ops.relabel_gather(keys, pv, 0, out=keys).data_ptr() == keys.data_ptr()
+    assert torch.equal(keys, want)
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.relabel_gather(keys.reshape(-1)[1:], pv, 0, out=keys.reshape(-1)[:-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [1, 2, 8])
+def test_relabel_ring_launches_once_per_field(cuda, nb):
+    from repro_torch.core.relabel import relabel_ring
+
+    cfg = GraphConfig(scale=14, nb=nb)
+    g = torch.Generator(device="cpu").manual_seed(nb)
+    src = torch.randint(0, cfg.n, (cfg.m,), generator=g, dtype=torch.int32)
+    dst = torch.randint(0, cfg.n, (cfg.m,), generator=g, dtype=torch.int32)
+    pv = torch.randperm(cfg.n, generator=g).to(torch.int32)
+    before = ops.LAUNCHES["relabel_gather"]
+    got = relabel_ring(cfg, src.to(cuda), dst.to(cuda), pv.to(cuda))
+    assert ops.LAUNCHES["relabel_gather"] == before + 2
+    want = relabel_ring(cfg, src, dst, pv)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
 # flash_attention: (b) the decode wave at full width (bf16, per-slot offsets),
 # (c) non-causal with ragged Sq / Skv (f32), (d) the smoke configs' D 16 (f32),
 # the decode kernel's split-KV path (few blocks, long keys) with ragged

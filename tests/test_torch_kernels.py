@@ -109,6 +109,20 @@ def test_feistel_plain_matches_pallas_interpret(nbits):
     _eq(ops.feistel_perm(torch.from_numpy(x), key, nbits), want)
 
 
+@pytest.mark.parametrize("nbits", range(1, 32))
+def test_feistel_perm_matches_pallas_every_width_and_rounds(nbits):
+    """Every nbits (1: the empty low half) and every rounds value the kernel
+    takes, at an n that is no multiple of 4 (the kernel's ragged tail)."""
+    n = TILE + 3                      # the Pallas kernel takes whole tiles: pad, then cut
+    rng = np.random.default_rng(500 + nbits)
+    x = rng.integers(0, 1 << nbits, n, dtype=np.int64).astype(np.int32)
+    padded = jnp.asarray(np.concatenate([x, np.zeros(2 * TILE - n, np.int32)]))
+    for rounds in (2, 4, 6, 8):
+        key = 0xFACADE ^ (nbits << 8) ^ rounds
+        want = np.asarray(feistel_perm_pallas(padded, key, nbits, rounds=rounds))[:n]
+        _eq(ops.feistel_perm(torch.from_numpy(x), key, nbits, rounds), want)
+
+
 @pytest.mark.parametrize("n", [5, 1000, 4096])
 def test_keyed_perm_cycle_walk_matches_reference(n):
     rng = np.random.default_rng(n)

@@ -107,6 +107,27 @@ HIST_LISTING = """
 """
 
 
+GATHER_LISTING = """
+\t\tFunction : _ZN12_GLOBAL__N_121relabel_gather_kernelILb0EEEvPKiPi8MapShape9GatherMap
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0020*/                   LDG.E.CONSTANT R8, desc[UR4][R10.64] ;
+        /*0030*/                   LDG.E.CONSTANT R9, desc[UR4][R12.64] ;
+        /*0040*/                   LDG.E.CONSTANT R14, desc[UR4][R16.64] ;
+        /*0050*/                   LDG.E.CONSTANT R15, desc[UR4][R18.64] ;
+        /*0060*/                   STG.E.128 desc[UR4][R20.64], R8 ;
+        /*0070*/                   IADD3 R3, R3, 0x1, RZ ;
+        /*0080*/              @!P0 BRA 0x10 ;
+        /*0090*/                   EXIT ;
+"""
+
+
+def test_per_item_ops_table_gathers_carry_no_items():
+    """relabel_gather's loop: one 128-bit load of 4 keys and 4 gathers of
+    the table; 8 thread instructions over the 4 keys, not over 8 loads' worth."""
+    assert per_item_ops(GATHER_LISTING, "relabel_gather_kernelILb0E") == 2
+
+
 @pytest.mark.parametrize("kernel,want", [
     # the loop 0x20..0xb0: 9 thread instructions (UIADD3 is uniform) over
     # two 128-bit loads of 4 items each; the head's 32-bit load before it
