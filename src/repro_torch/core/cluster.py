@@ -1375,8 +1375,8 @@ class ClusterController:
                     live[str(hid)] = {
                         # The live fleet view `status --watch` renders: what
                         # each host last worked on, how deep its queue is,
-                        # and its unified counters — same snapshot schema as
-                        # BENCH json (trace.unified_snapshot).
+                        # and its unified counters
+                        # (trace.unified_snapshot).
                         "phase": self.host_last_key.get(hid, ""),
                         "queue": len(self._queues[hid]),
                         "inflight": len(self._inflight[hid]),

@@ -77,12 +77,7 @@ from .corpus import (
     shard_name as corpus_shard_name,
     write_manifest,
 )
-from .trace import (
-    GLOBAL as GLOBAL_METRICS,
-    get_tracer,
-    maybe_install_tracer,
-    unified_snapshot,
-)
+from .trace import get_tracer, maybe_install_tracer
 from .transport import (
     ExchangeServer,
     Transport,
@@ -1817,12 +1812,6 @@ class PhaseOrchestrator:
         if tracer.enabled:
             tracer.event(name, "phase", t_wall, seconds,
                          args={k: v for k, v in delta.items() if v} or None)
-        # Every phase also refreshes the process-wide unified snapshot (the
-        # ledger/stats here are cumulative, so latest-wins is correct) —
-        # this is what benchmarks/run.py harvests into BENCH json.
-        GLOBAL_METRICS.update(
-            "orchestrator", unified_snapshot(ledger=self.ledger,
-                                             stats=self._stats))
         if self.checkpoint and save is not None:
             self._completed[name] = save(result)
             state = dict(self._completed)

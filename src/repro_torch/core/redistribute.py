@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..distributed.collectives import capacity_all_to_all, merge_sorted_runs
+from .trace import device_span
 from .types import GraphConfig
 
 
@@ -47,30 +48,34 @@ def redistribute(cfg: GraphConfig, src: torch.Tensor, dst: torch.Tensor,
 
 def redistribute_sorted(cfg: GraphConfig, src: torch.Tensor, dst: torch.Tensor,
                         capacity: int = 0) -> OwnedEdges:
-    """Sorted-merge redistribute (paper §III-B7)."""
+    """Sorted-merge redistribute (paper §III-B7).  Its three steps are the
+    device spans "redistribute.sort", ".exchange" and ".merge"."""
     nb, B = cfg.nb, cfg.bucket_size
     cap = capacity or default_capacity(cfg)
     src, dst = src.reshape(nb, -1), dst.reshape(nb, -1)
-    src_s, order = torch.sort(src, dim=1, stable=True)              # send-side sort
-    pair = torch.stack([src_s, torch.gather(dst, 1, order)], dim=-1)
-    del order
-    ex = capacity_all_to_all(pair, torch.div(src_s, B, rounding_mode="floor"), capacity=cap)
-    del pair, src_s
-    out_src = torch.empty((nb, nb * cap), dtype=src.dtype, device=src.device)
-    out_dst = torch.empty((nb, nb * cap), dtype=dst.dtype, device=dst.device)
-    out_valid = torch.empty((nb, nb * cap), dtype=torch.bool, device=src.device)
-    for r in range(nb):
-        rs, rd, rv = ex.data[r, ..., 0], ex.data[r, ..., 1], ex.valid[r]
-        # receive-side k-way merge; empty slots get the sentinel key n.
-        keys = torch.where(rv, rs, cfg.n)
-        payload = torch.stack([rd, rv.to(rd.dtype)], dim=-1)
-        mkeys, mpay = merge_sorted_runs(keys, payload)
-        mvalid = mpay[:, 1].to(torch.bool)
-        out_src[r] = torch.where(mvalid, mkeys, 0)
-        out_dst[r] = mpay[:, 0]
-        out_valid[r] = mvalid
-        del rs, rd, rv, keys, payload, mkeys, mpay, mvalid
-    dropped = ex.dropped
-    del ex
+    with device_span("redistribute.sort", src.device):
+        src_s, order = torch.sort(src, dim=1, stable=True)          # send-side sort
+        pair = torch.stack([src_s, torch.gather(dst, 1, order)], dim=-1)
+        del order
+    with device_span("redistribute.exchange", src.device):
+        ex = capacity_all_to_all(pair, torch.div(src_s, B, rounding_mode="floor"), capacity=cap)
+        del pair, src_s
+    with device_span("redistribute.merge", src.device):
+        out_src = torch.empty((nb, nb * cap), dtype=src.dtype, device=src.device)
+        out_dst = torch.empty((nb, nb * cap), dtype=dst.dtype, device=dst.device)
+        out_valid = torch.empty((nb, nb * cap), dtype=torch.bool, device=src.device)
+        for r in range(nb):
+            rs, rd, rv = ex.data[r, ..., 0], ex.data[r, ..., 1], ex.valid[r]
+            # receive-side k-way merge; empty slots get the sentinel key n.
+            keys = torch.where(rv, rs, cfg.n)
+            payload = torch.stack([rd, rv.to(rd.dtype)], dim=-1)
+            mkeys, mpay = merge_sorted_runs(keys, payload)
+            mvalid = mpay[:, 1].to(torch.bool)
+            out_src[r] = torch.where(mvalid, mkeys, 0)
+            out_dst[r] = mpay[:, 0]
+            out_valid[r] = mvalid
+            del rs, rd, rv, keys, payload, mkeys, mpay, mvalid
+        dropped = ex.dropped
+        del ex
     return OwnedEdges(out_src.reshape(nb * nb, cap), out_dst.reshape(nb * nb, cap),
                       out_valid.reshape(nb * nb, cap), dropped)

@@ -1,12 +1,13 @@
-"""Run-wide tracing + unified metrics: spans, Perfetto export, one schema
-(twin of `repro.core.trace`).
+"""Run-wide tracing: host spans with a Perfetto export, device-timed spans
+and counters, and one telemetry schema (the host half is the twin of
+`repro.core.trace`).
 
 The paper's whole argument is an I/O-cost ledger — which pass, which phase,
-how many bytes, how much overlap — but until this module the telemetry was
-fragmented: IOLedger (disk), TransportStats (wire), MemoryGauge (residency),
-stall counters (async I/O), and ad-hoc controller dicts, none of which could
-answer "where did the wall time of this 2-host run go?".  Two pieces close
-that gap:
+how many bytes, how much overlap — but the telemetry was fragmented:
+IOLedger (disk), TransportStats (wire), MemoryGauge (residency), stall
+counters (async I/O), and ad-hoc controller dicts, none of which could
+answer "where did the wall time of this 2-host run go?".  Three pieces
+close that gap:
 
   Tracer            a per-process, append-only span log.  Every
                     instrumented site (PhaseOrchestrator.run_phase, the
@@ -23,21 +24,34 @@ that gap:
                     ever created, so traced and untraced runs are
                     bit-identical in everything but the trace files.
 
-  MetricsRegistry   one snapshot schema (`unified_snapshot`) over every
-                    counter family: {"schema", "io" (IOLedger), "stalls"
+  DeviceSpans       spans timed on the device and counters kept where the
+                    in-memory pipeline works (`device_span`, `count`): the
+                    steps of `redistribute_sorted`, each hop of
+                    `distributed_walks`, and what `capacity_all_to_all`
+                    offers, keeps and has room for.  The host clock cannot
+                    time asynchronous CUDA work, so a span on a card
+                    records a CUDA event at entry and exit (on the CPU,
+                    whose ops are synchronous: perf_counter) and opens a
+                    `record_function` range, which a profiled window shows
+                    on the kernels' own clock.  Spans record while a
+                    recorder is installed (`install_device_spans`) or a
+                    torch.profiler session records; otherwise each site
+                    costs an attribute check and a query of the profiler's
+                    state, and nothing runs.  `take_device_spans`
+                    synchronises once and resolves every span to
+                    milliseconds.
+
+  unified_snapshot  one snapshot schema over every counter family:
+                    {"schema", "io" (IOLedger), "stalls"
                     (read_wait_s/write_wait_s/overlap_s), "wire"
-                    (TransportStats), "memory" (MemoryGauge)}.  The SAME
-                    shape flows into BENCH_*.json (benchmarks/run.py), the
-                    controller's `status` admin RPC (per host), and any
-                    future serve-tier histogram — so trajectory diffs,
-                    live fleet views, and trace args never disagree about
-                    what a byte counter is called.
+                    (TransportStats), "memory" (MemoryGauge)}, the shape
+                    of the controller's `status` admin RPC (per host).
 
 Hosts ship their trace files to the controller (a "trace" control op riding
 the exchange frame format — see core/cluster.py), where they land in
 `<ctrl>/trace/host{h}.jsonl`; `merge_traces` + `to_perfetto` turn any pile
 of trace files into one run-wide Chrome/Perfetto trace-event JSON
-(`python -m repro.launch.cluster trace`).
+(`python -m repro_torch.launch.cluster trace`).
 
 Clock discipline: spans carry WALL-clock `ts` (time.time(), comparable
 across processes and hosts within NTP skew) and a perf_counter-measured
@@ -61,13 +75,13 @@ import dataclasses
 import glob
 import json
 import os
-import socket
-import subprocess
 import sys
 import threading
 import time
 from collections import deque
 from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
 
 SCHEMA_VERSION = 1
 
@@ -425,7 +439,7 @@ def phase_durations(events: Sequence[Dict]) -> Dict[str, float]:
 
 
 # ---------------------------------------------------------------------------
-# Unified metrics schema + registry
+# Unified metrics schema
 # ---------------------------------------------------------------------------
 
 _STALL_KEYS = ("read_wait_s", "write_wait_s", "overlap_s")
@@ -434,8 +448,8 @@ _STALL_KEYS = ("read_wait_s", "write_wait_s", "overlap_s")
 def unified_snapshot(ledger=None, stats=None, gauge=None,
                      extra: Optional[Dict] = None) -> Dict:
     """THE telemetry snapshot schema: every surface that reports counters
-    (BENCH_*.json, the `status` admin RPC, trace span args, future serve
-    latency histograms) emits this shape, so consumers parse one schema.
+    (the `status` admin RPC, trace span args) emits this shape, so
+    consumers parse one schema.
 
       {"schema": 1,
        "io":     flat IOLedger counters (stall seconds split out),
@@ -465,92 +479,172 @@ def unified_snapshot(ledger=None, stats=None, gauge=None,
     return snap
 
 
-class MetricsRegistry:
-    """Named unified_snapshot slots + a combiner.  `update(name, snap)`
-    replaces the named slot (snapshots are cumulative, so latest wins);
-    `combined()` folds every slot into one snapshot — numeric counters
-    sum, memory peaks take the max.  Thread-safe: phase threads, the
-    controller's server threads, and the bench harness all touch it."""
+# ---------------------------------------------------------------------------
+# Device-timed spans and counters
+# ---------------------------------------------------------------------------
+
+
+_NO_SPAN = contextlib.nullcontext()          # the span of a site that records nothing
+
+
+class DeviceSpans:
+    """A recorder of device-timed spans and of counters.
+
+    A span is timed on the clock of the work it holds: on a CUDA device it
+    records a timing event on that device's current stream at entry and at
+    exit and never synchronises; on the CPU, whose ops run as they are
+    called, it reads perf_counter.  Each span notes its parent (the
+    innermost span open on its thread) and opens `record_function(name)`,
+    so a profiled window carries it as a host range on the profiler's own
+    clock.  A count is kept under "<innermost span>/<name>"; a tensor
+    value stays on the device, added into a 0-d int64 tensor and read
+    only by `take`."""
 
     def __init__(self):
+        self._open = threading.local()
         self._lock = threading.Lock()
-        self._snaps: Dict[str, Dict] = {}
+        self._spans: List[list] = []        # [name, parent, entry, exit, card or None]
+        self._host: Dict[str, int] = {}
+        self._device: Dict[str, torch.Tensor] = {}
 
-    def update(self, name: str, snap: Dict) -> None:
+    def _stack(self) -> List[str]:
+        stack = getattr(self._open, "names", None)
+        if stack is None:
+            stack = self._open.names = []
+        return stack
+
+    @staticmethod
+    def _stamp(card):
+        if card is None:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(card))
+        return event
+
+    def depth(self) -> int:
+        """Spans open on the calling thread."""
+        return len(self._stack())
+
+    @contextlib.contextmanager
+    def span(self, name: str, device):
+        device = torch.device(device)
+        card = device if device.type == "cuda" else None
+        stack = self._stack()
+        rec = [name, stack[-1] if stack else None, None, None, card]
         with self._lock:
-            self._snaps[name] = snap
+            self._spans.append(rec)
+        with torch.autograd.profiler.record_function(name):
+            rec[2] = self._stamp(card)
+            stack.append(name)
+            try:
+                yield
+            finally:
+                stack.pop()
+                rec[3] = self._stamp(card)
 
-    def get(self, name: str) -> Optional[Dict]:
+    def count(self, name: str, value) -> None:
+        """Add `value` to the counter `name` of the innermost open span
+        (the bare `name` outside every span)."""
+        stack = self._stack()
+        key = f"{stack[-1]}/{name}" if stack else name
         with self._lock:
-            return self._snaps.get(name)
+            if not isinstance(value, torch.Tensor):
+                self._host[key] = self._host.get(key, 0) + int(value)
+            elif key in self._device:
+                self._device[key].add_(value)
+            else:
+                self._device[key] = value.to(torch.int64, copy=True).reshape(())
 
-    def names(self) -> List[str]:
+    def take(self) -> Dict:
+        """{"spans": [(name, parent, ms), ...] in entry order, "counters":
+        {name: int}}, after one synchronisation of each card the spans
+        timed; spans still open are left out."""
         with self._lock:
-            return sorted(self._snaps)
-
-    def clear(self) -> None:
-        with self._lock:
-            self._snaps.clear()
-
-    def combined(self) -> Dict:
-        with self._lock:
-            snaps = list(self._snaps.items())
-        out: Dict = {"schema": SCHEMA_VERSION}
-        if snaps:
-            out["sources"] = sorted(n for n, _ in snaps)
-        for _, snap in snaps:
-            for sec in ("io", "stalls", "wire", "extra"):
-                d = snap.get(sec)
-                if not isinstance(d, dict):
-                    continue
-                acc = out.setdefault(sec, {})
-                for k, v in d.items():
-                    if isinstance(v, (int, float)):
-                        acc[k] = acc.get(k, 0) + v
-            mem = snap.get("memory")
-            if isinstance(mem, dict):
-                acc = out.setdefault("memory", {})
-                for k, v in mem.items():
-                    if isinstance(v, (int, float)):
-                        acc[k] = max(acc.get(k, 0), v)
-        return out
+            recs = [r for r in self._spans if r[3] is not None]
+            host, device = dict(self._host), dict(self._device)
+            self._spans, self._host, self._device = [], {}, {}
+        for card in {r[4] for r in recs if r[4] is not None}:
+            torch.cuda.synchronize(card)
+        spans = [(name, parent, (b - a) * 1e3 if card is None else a.elapsed_time(b))
+                 for name, parent, a, b, card in recs]
+        counters = dict(host)
+        for key, value in device.items():
+            counters[key] = counters.get(key, 0) + int(value)
+        return {"spans": spans, "counters": counters}
 
 
-# The process-wide registry: PhaseOrchestrator folds its cumulative
-# ledger/wire counters in per phase; benchmarks/run.py snapshots + clears
-# it per bench; the cluster controller keeps its own per-host instances.
-GLOBAL = MetricsRegistry()
+_DEVICE_SPANS: Optional[DeviceSpans] = None     # installed by install_device_spans
+_PROFILED: Optional[DeviceSpans] = None         # the newest profiled stretch's spans
+_PROFILING = False                              # the last site met a profiler recording
 
 
-# ---------------------------------------------------------------------------
-# Run metadata (BENCH attribution across machines)
-# ---------------------------------------------------------------------------
+def install_device_spans() -> DeviceSpans:
+    """Install the process recorder of device spans.  Idempotent: a second
+    install returns the first recorder."""
+    global _DEVICE_SPANS
+    with _INSTALL_LOCK:
+        if _DEVICE_SPANS is None:
+            _DEVICE_SPANS = DeviceSpans()
+        return _DEVICE_SPANS
 
 
-def run_metadata(config_digest: Optional[str] = None) -> Dict[str, str]:
-    """Provenance stamp for BENCH_summary.json: which commit, which box,
-    when, which torch and card.  All values are STRINGS so benchmarks/diff.py's
-    numeric-leaf walk never tracks them as a perf trajectory."""
-    meta = {
-        "schema": str(SCHEMA_VERSION),
-        "hostname": socket.gethostname(),
-        "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
-        "python": sys.version.split()[0],
-    }
-    try:
-        meta["git_sha"] = subprocess.run(
-            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
-            timeout=5.0, cwd=os.path.dirname(os.path.abspath(__file__)),
-        ).stdout.strip() or "unknown"
-    except (OSError, subprocess.SubprocessError):
-        meta["git_sha"] = "unknown"
-    import torch
-    meta["torch"] = str(torch.__version__)
-    meta["device"] = (torch.cuda.get_device_name(0) if torch.cuda.is_available()
-                      else "cpu")
-    if config_digest:
-        meta["config_digest"] = str(config_digest)
-    return meta
+def _recorder() -> Optional[DeviceSpans]:
+    """The recorder a site meets: the installed one, else, while a
+    torch.profiler session records, the recorder of the profiled stretch
+    (the sites met while a profiler records, with no site between them
+    met while none does); None when neither records.  A stretch's first
+    site starts a new recorder, so a window never holds the spans of an
+    earlier one; two profiled windows with no site met between them are
+    one stretch."""
+    global _PROFILED, _PROFILING
+    rec = _DEVICE_SPANS
+    if rec is not None:
+        return rec
+    if not torch.autograd._profiler_enabled():
+        _PROFILING = False
+        return None
+    if not _PROFILING or _PROFILED is None:
+        with _INSTALL_LOCK:
+            _PROFILED, _PROFILING = DeviceSpans(), True
+    return _PROFILED
+
+
+def device_span(name: str, device):
+    """A context manager timing its block as span `name` on the clock of
+    `device`, where the block's work runs; it records nothing when no
+    recorder records."""
+    rec = _recorder()
+    return _NO_SPAN if rec is None else rec.span(name, device)
+
+
+def counting() -> bool:
+    """Whether a `count` made here is kept: a recorder records and a span
+    is open on this thread.  A site tests it before it computes a device
+    value to count, so that nothing runs where nothing is kept."""
+    rec = _recorder()
+    return rec is not None and rec.depth() > 0
+
+
+def count(name: str, value) -> None:
+    """Add `value` (an int, or a 0-d integer tensor left on its device) to
+    the counter `name` of the innermost open span."""
+    rec = _recorder()
+    if rec is not None:
+        rec.count(name, value)
+
+
+def take_device_spans() -> Optional[Dict]:
+    """Resolve and uninstall the installed recorder, else take the newest
+    profiled stretch's spans (`DeviceSpans.take`); None where neither
+    recorded."""
+    global _DEVICE_SPANS, _PROFILED
+    with _INSTALL_LOCK:
+        rec = _DEVICE_SPANS or _PROFILED
+        if rec is _DEVICE_SPANS:
+            _DEVICE_SPANS = None
+        else:
+            _PROFILED = None
+    return None if rec is None else rec.take()
 
 
 # ---------------------------------------------------------------------------

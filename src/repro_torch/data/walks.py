@@ -48,6 +48,7 @@ from ..core.phases import (
     plain_config,
     result_config_key,
 )
+from ..core.trace import device_span
 from ..core.transport import make_transport
 from ..core.types import GraphConfig, owner_of
 from ..distributed.collectives import capacity_all_to_all
@@ -141,7 +142,9 @@ def distributed_walks(cfg: GraphConfig, offv: torch.Tensor, adjv: torch.Tensor, 
     vertex with `capacity_all_to_all` (capacity cp = ceil(W * factor / nb)
     per shard pair, cap = cp * nb rows per shard), so each hop reads local
     CSR rows only.  A receiver's rows are sender-major.  Walkers past a
-    pair's capacity are dropped and counted; their rows end invalid.
+    pair's capacity are dropped and counted; their rows end invalid.  Each
+    hop is two device spans (`core/trace.py`), "walks.exchange" and
+    "walks.advance".
     """
     nb, B, n, W = cfg.nb, cfg.bucket_size, cfg.n, walkers_per_shard
     vdt = cfg.vertex_dtype
@@ -171,30 +174,32 @@ def distributed_walks(cfg: GraphConfig, offv: torch.Tensor, adjv: torch.Tensor, 
     del wid, pos
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
     for t in range(length):
-        ex = capacity_all_to_all(payload, owner_of(payload[..., 0], B), capacity=cp,
-                                 valid=payload[..., 2] == 1)
-        dropped += ex.dropped
-        # [receiver, sender, cp, .] -> each receiver's rows, sender-major
-        payload = ex.data.reshape(nb, cap, 4 + length)
-        alive = ex.valid.reshape(nb, cap) & (payload[..., 2] == 1)
-        del ex
-        # advance one hop from local CSR rows
-        row = (payload[..., 0].to(torch.int64) - base).clamp(0, B - 1)
-        start = torch.gather(offv_s, 1, row)
-        deg = torch.gather(offv_s, 1, row + 1) - start
-        del row
-        r = walk_rand(seed, payload[..., 1], t + 1)
-        sink = deg <= 0
-        idx = start + torch.where(sink, 0, r % deg.clamp(min=1))
-        del start, deg
-        nxt = torch.gather(adjv_s, 1, idx.clamp(0, adjv_s.shape[1] - 1)).to(torch.int64)
-        nxt = torch.where(sink, r % n, nxt)
-        nxt = torch.where(alive, nxt, 0).to(vdt)
-        del idx, r, sink
-        payload[..., 0] = nxt
-        payload[..., 2] = alive.to(vdt)
-        payload[..., 4 + t] = nxt
-        del nxt, alive
+        with device_span("walks.exchange", dev):
+            ex = capacity_all_to_all(payload, owner_of(payload[..., 0], B), capacity=cp,
+                                     valid=payload[..., 2] == 1)
+            dropped += ex.dropped
+            # [receiver, sender, cp, .] -> each receiver's rows, sender-major
+            payload = ex.data.reshape(nb, cap, 4 + length)
+            alive = ex.valid.reshape(nb, cap) & (payload[..., 2] == 1)
+            del ex
+        with device_span("walks.advance", dev):
+            # advance one hop from local CSR rows
+            row = (payload[..., 0].to(torch.int64) - base).clamp(0, B - 1)
+            start = torch.gather(offv_s, 1, row)
+            deg = torch.gather(offv_s, 1, row + 1) - start
+            del row
+            r = walk_rand(seed, payload[..., 1], t + 1)
+            sink = deg <= 0
+            idx = start + torch.where(sink, 0, r % deg.clamp(min=1))
+            del start, deg
+            nxt = torch.gather(adjv_s, 1, idx.clamp(0, adjv_s.shape[1] - 1)).to(torch.int64)
+            nxt = torch.where(sink, r % n, nxt)
+            nxt = torch.where(alive, nxt, 0).to(vdt)
+            del idx, r, sink
+            payload[..., 0] = nxt
+            payload[..., 2] = alive.to(vdt)
+            payload[..., 4 + t] = nxt
+            del nxt, alive
     return (payload[..., 3:].reshape(nb * cap, length + 1), payload[..., 2].reshape(-1) == 1,
             payload[..., 1].reshape(-1), dropped)
 

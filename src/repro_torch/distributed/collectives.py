@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..core.trace import count, counting
 from ..kernels.bucket import bucket_hist
 
 JUNK_ROWS = 1 << 16   # rows past the buckets that take dead records (a power of two)
@@ -110,6 +111,11 @@ def capacity_all_to_all(data: torch.Tensor, dest: torch.Tensor, *, capacity: int
     are written straight into the receivers' rows: the all_to_all is the
     [sender, dest] -> [dest, sender] transpose, done while bucketing.  Rows
     with `valid` [nb, N] False are discarded without taking a slot.
+
+    Where a device span records (`core/trace.py`), the exchange counts under
+    it the records offered ("rows", dead ones included), those valid
+    ("live", from each sender's bucket counts), those given a slot ("kept",
+    live less dropped) and the slots ("slots").
     """
     nb = data.shape[0]
     recv = torch.empty((nb, nb, capacity) + tuple(data.shape[2:]), dtype=data.dtype,
@@ -117,6 +123,7 @@ def capacity_all_to_all(data: torch.Tensor, dest: torch.Tensor, *, capacity: int
     recv_valid = torch.empty((nb, nb, capacity), dtype=torch.bool, device=data.device)
     position = torch.empty(dest.shape, dtype=torch.int64, device=data.device)
     dropped = torch.zeros((), dtype=torch.int32, device=data.device)
+    live = [] if counting() else None
     for s in range(nb):
         b = bucket_by_destination(data[s], dest[s], nb, capacity,
                                   valid=None if valid is None else valid[s])
@@ -124,7 +131,15 @@ def capacity_all_to_all(data: torch.Tensor, dest: torch.Tensor, *, capacity: int
         recv_valid[:, s] = b.valid
         position[s] = b.position
         dropped += b.dropped
+        if live is not None:
+            live.append(b.counts)
         del b
+    if live is not None:
+        live = torch.stack(live).sum()
+        count("rows", dest.numel())
+        count("live", live)
+        count("kept", live - dropped)
+        count("slots", nb * nb * capacity)
     return ExchangeResult(recv, recv_valid, position, dropped)
 
 

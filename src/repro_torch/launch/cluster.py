@@ -172,8 +172,8 @@ Training then streams straight from the sharded corpus manifest:
    While a run is live, watch the fleet instead of polling JSON: the
    `status` admin RPC now carries a per-host live view — current phase
    key, queue depth, in-flight tasks, busy seconds, heartbeat age, and
-   the unified metrics snapshot (io / stalls / wire / memory, the same
-   schema BENCH_*.json embeds):
+   the unified metrics snapshot (io / stalls / wire / memory,
+   `core.trace.unified_snapshot`):
 
        PYTHONPATH=src python -m repro_torch.launch.cluster status \
            --workdir /tmp/cluster --watch            # redraws every 2 s
