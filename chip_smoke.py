@@ -8,7 +8,7 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
 1. kernel phase: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and at edge cases, with CUDA-event times of the
    kernel, the plain version and, where one exists, a single PyTorch library
-   call.  The four graph kernels are bit-equal (tolerance zero: all values
+   call.  The five graph kernels are bit-equal (tolerance zero: all values
    are integers); `flash_attention`'s two kernels (decode: split-KV with
    1-D bulk copies; prefill: wgmma + TMA) are held, row by row, to their
    error relative to the row's largest value (`flash_attention.row_error`):
@@ -33,7 +33,10 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    relabel: 8 sorted rows of 2^27 keys against all of pv, one launch), at
    one ring round's segment (the call before that) and at a disk-tier join
    segment; `feistel_perm` at 2^30 ids and at a disk-tier chunk; the disk
-   tier's calls beside an empty kernel.  Before that, the attention
+   tier's calls beside an empty kernel; `merge_runs` (no Pallas kernel:
+   redistribute_sorted's receive side) at the main path's exchange, bit-equal
+   to its plain version, one launch, beside its byte bound and the device
+   ms of its four launches.  Before that, the attention
    library's `ptxas -v` report and SASS give each kernel instance's
    registers and spills, and the run fails unless
    every prefill instance issues HGMMA and UTMALDG and every decode instance
@@ -50,7 +53,7 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    and read just after each, validated on the card; then the same for the
    communication-free variant (shuffle_variant="recompute"), the main path's
    user of the Feistel kernel (the ring relabel launches relabel_gather once
-   a field: 2 a run, else the run fails).  The graph kernels' bounds count the
+   a field: 2 a run, and merge_runs 1, else the run fails).  The graph kernels' bounds count the
    per-thread SASS instructions of this build (`repro_torch.kernels.sass`);
    then walks_main: distributed_walks over the warm run's CSR, 2^20 walkers
    per shard (2^23 walks), length 80, capacity factor 8, launch counts set
@@ -462,6 +465,68 @@ def relabel_plain_rows(torch, ops, keys, pv, base):
                       for c in flat.split(PLAIN_CHUNK)]).reshape(keys.shape)
 
 
+def merge_exchange(torch, ops, cfg, dev, g):
+    """merge_runs' main-path input: redistribute_sorted's exchange of the
+    full graph's R-MAT edges relabeled by a random permutation (as the
+    pipeline relabels them, so hubs spread over the shards), each sender's
+    row sorted by source, stably, at generate's capacity.  Returns (data,
+    valid)."""
+    from repro_torch.core.redistribute import default_capacity
+    from repro_torch.distributed.collectives import capacity_all_to_all
+
+    eps = cfg.edges_per_shard
+    pv = torch.randperm(cfg.n, generator=g, device=dev).to(torch.int32)
+    pair = torch.empty((cfg.nb, eps, 2), dtype=torch.int32, device=dev)
+    for bid in range(cfg.nb):
+        src, dst = ops.rmat_edges(cfg, bid * eps, eps, dev)
+        src, order = torch.sort(pv[src.long()], stable=True)
+        pair[bid, :, 0], pair[bid, :, 1] = src, pv[dst.long()][order]
+        del src, dst, order
+    del pv
+    ex = capacity_all_to_all(pair, torch.div(pair[..., 0], cfg.bucket_size, rounding_mode="floor"),
+                             capacity=default_capacity(cfg))
+    return ex.data, ex.valid
+
+
+def merge_case(torch, ops, cfg, dev, g, int_ops_per_s) -> dict:
+    """merge_runs at the main path's shape (merge_exchange: nb receivers of
+    nb x (2^25 + 8) slots, about 2^27 live each) against its plain version
+    (the merge the port ran before the kernel), bit for bit; one launch a
+    call; CUDA-event times of both; its byte bound (each live record read
+    once, every slot written once: 8 and 9 bytes); the device ms of its four
+    launches by kernel from one profiled call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import attribution, roofline
+
+    data, valid = merge_exchange(torch, ops, cfg, dev, g)
+    nb, cap = data.shape[0], data.shape[2]
+    live = int(valid.sum())
+    got = ops.merge_runs(data, valid, cfg.n)
+    want = ops.merge_runs_plain(data, valid, cfg.n)
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "merge_runs [main] differs from its plain version")
+    del got, want
+    before = ops.LAUNCHES["merge_runs"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.merge_runs(data, valid, cfg.n)
+        torch.cuda.synchronize()
+    require(ops.LAUNCHES["merge_runs"] == before + 1, "merge_runs: not one launch a call")
+    bound_ms, bound_by = roofline.kernel_bound(8 * live + 9 * nb * nb * cap, 0, int_ops_per_s)
+    line = {"kernel": "merge_runs",
+            "case": f"main: {nb} receivers x {nb} x {cap} slots, {live} live, scale {cfg.scale}",
+            "n": live, "max_abs_diff": 0,
+            "kernel_ms": time_ms(lambda: ops.merge_runs(data, valid, cfg.n)),
+            "plain_ms": time_ms(lambda: ops.merge_runs_plain(data, valid, cfg.n), reps=3),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "by_kernel_ms": {name[:60]: ms for ms, name, _ in attribution.device_rows(prof)
+                             if "merge_" in name}}
+    emit(line)
+    del data, valid
+    torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -691,6 +756,8 @@ def main() -> int:
           "max_abs_diff": fault, "rejected": True})
     del dk, part
 
+    summary["merge_runs"] = merge_case(torch, ops, main_cfg, dev, g, int_ops_per_s)
+
     # the disk tier's chunk shapes (the hooks of core/chunks.py): one
     # external_main chunk (2^21 edges) for rmat_edges and for bucket_hist (a
     # partition's counts, k 8); one external_recompute chunk (2^20
@@ -844,6 +911,9 @@ def main() -> int:
             "times, not once per field")
     require(main_counts["main_recompute"]["feistel_perm"] > 0,
             "recompute main path never launched feistel_perm")
+    for label in ("main", "main_recompute"):
+        require(main_counts[label]["merge_runs"] == 1,
+                f"{label} launched merge_runs {main_counts[label]['merge_runs']} times, not once")
     torch.cuda.empty_cache()
     main_counts["walks_main"] = walks_main_phase(torch, ops, dev, main_cfg, main_csr)
     torch.cuda.empty_cache()
@@ -917,6 +987,8 @@ def main() -> int:
         "feistel_perm": "src/repro/kernels/rmat.py:137",
         "relabel_gather": "src/repro/kernels/relabel_gather.py:54",
         "bucket_hist": "src/repro/kernels/bucket.py:49",
+        "merge_runs": "none (the plain merge_sorted_runs rounds, "
+                      "src/repro/distributed/collectives.py:222)",
         "flash_attention": "src/repro/kernels/flash_attention.py:114",
     }
     # flash_attention's two kernels, each with the numbers of its main case

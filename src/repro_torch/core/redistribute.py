@@ -5,7 +5,9 @@ An edge is owned by the shard whose range contains its relabeled source.
   redistribute         unordered: one capacity_all_to_all
   redistribute_sorted  senders sort by source (stably), the stable bucketing
                        keeps each packet sorted, each receiver k-way merges
-                       its nb runs: its edges come out sorted by source.
+                       its nb runs (`kernels/merge.py::merge_runs`, one
+                       launch for all receivers on a card): its edges come
+                       out sorted by source.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..distributed.collectives import capacity_all_to_all, merge_sorted_runs
+from ..distributed.collectives import capacity_all_to_all
+from ..kernels.merge import merge_runs
 from .trace import device_span
 from .types import GraphConfig
 
@@ -61,20 +64,7 @@ def redistribute_sorted(cfg: GraphConfig, src: torch.Tensor, dst: torch.Tensor,
         ex = capacity_all_to_all(pair, torch.div(src_s, B, rounding_mode="floor"), capacity=cap)
         del pair, src_s
     with device_span("redistribute.merge", src.device):
-        out_src = torch.empty((nb, nb * cap), dtype=src.dtype, device=src.device)
-        out_dst = torch.empty((nb, nb * cap), dtype=dst.dtype, device=dst.device)
-        out_valid = torch.empty((nb, nb * cap), dtype=torch.bool, device=src.device)
-        for r in range(nb):
-            rs, rd, rv = ex.data[r, ..., 0], ex.data[r, ..., 1], ex.valid[r]
-            # receive-side k-way merge; empty slots get the sentinel key n.
-            keys = torch.where(rv, rs, cfg.n)
-            payload = torch.stack([rd, rv.to(rd.dtype)], dim=-1)
-            mkeys, mpay = merge_sorted_runs(keys, payload)
-            mvalid = mpay[:, 1].to(torch.bool)
-            out_src[r] = torch.where(mvalid, mkeys, 0)
-            out_dst[r] = mpay[:, 0]
-            out_valid[r] = mvalid
-            del rs, rd, rv, keys, payload, mkeys, mpay, mvalid
+        out_src, out_dst, out_valid = merge_runs(ex.data, ex.valid, cfg.n)   # receive side
         dropped = ex.dropped
         del ex
     return OwnedEdges(out_src.reshape(nb * nb, cap), out_dst.reshape(nb * nb, cap),

@@ -27,10 +27,11 @@ close that gap:
   DeviceSpans       spans timed on the device and counters kept where the
                     in-memory pipeline works (`device_span`, `count`): the
                     steps of `redistribute_sorted`, each hop of
-                    `distributed_walks`, and what `capacity_all_to_all`
-                    offers, keeps and has room for.  The host clock cannot
-                    time asynchronous CUDA work, so a span on a card
-                    records a CUDA event at entry and exit (on the CPU,
+                    `distributed_walks`, what `capacity_all_to_all`
+                    offers, keeps and has room for, and what `merge_runs`
+                    merges and how much of it its kernel did.  The host
+                    clock cannot time asynchronous CUDA work, so a span on
+                    a card records a CUDA event at entry and exit (on the CPU,
                     whose ops are synchronous: perf_counter) and opens a
                     `record_function` range, which a profiled window shows
                     on the kernels' own clock.  Spans record while a

@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("rmat_edges", "feistel_perm", "relabel_gather", "bucket_hist", "flash_attention")
+KERNELS = ("rmat_edges", "feistel_perm", "relabel_gather", "bucket_hist", "merge_runs",
+           "flash_attention")
 # the two kernels behind the flash_attention wrapper, each also counted on its own
 FLASH_KERNELS = ("flash_attention_decode", "flash_attention_prefill")
 LAUNCHES = {name: 0 for name in KERNELS + FLASH_KERNELS}
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "feistel_perm_launch": [_P, _P, _LL, _I, _I, ctypes.POINTER(_U), _P],
     "relabel_gather_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _P],
     "bucket_hist_launch": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
+    "merge_runs_launch": [_P, _P, _I, _LL] + [_P] * 7,
     "flash_attention_launch": [_P] * 8 + [_I] * 14 + [ctypes.c_float, _P],
 }
 

@@ -86,6 +86,52 @@ def test_bucket_hist_kernel_all_pad(cuda, k):
     assert int(ops.bucket_hist(dest, k)[0]) == 333_335
 
 
+# merge_runs: (nb, edges a sender, vertices, capacity, hub edges a sender,
+# receiver with no edge).  Receivers' live totals fall on both sides of
+# tile (4096) boundaries; the hubs of nb 1 to 16 span three tiles or more;
+# the largest cases span several chunks of 16 tiles; small capacities
+# drop.
+MERGE_CASES = [
+    (8, 4095, 1 << 12, 1032, 0, None), (8, 4096, 1 << 12, 1032, 0, None),
+    (8, 4097, 1 << 12, 1033, 0, None), (8, 12289, 1 << 16, 3081, 0, None),
+    (8, 20000, 1 << 16, 5008, 2000, None), (8, 20000, 1 << 16, 4000, 2000, None),
+    (8, 20000, 1 << 16, 5008, 0, 3), (8, 200_000, 1 << 20, 50_008, 30_000, None),
+    (1, 70_000, 1 << 16, 70_000, 20_000, None), (2, 50_000, 1 << 16, 50_008, 9000, None),
+    (4, 30_000, 1 << 16, 15_008, 5000, 1), (16, 8000, 1 << 16, 1008, 800, None),
+    (32, 4000, 1 << 16, 258, 100, 5), (8, 1, 1 << 12, 3, 0, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,per_sender,n,cap,hub,empty", MERGE_CASES)
+def test_merge_runs_kernel_matches_plain(cuda, nb, per_sender, n, cap, hub, empty):
+    """One launch, bit-equal to the plain version, which a CUDA tensor never
+    falls back to; under a span it counts every live record as the
+    kernel's."""
+    from merge_cases import exchange
+    from repro_torch.core import trace
+
+    ex = exchange(nb, per_sender, n, cap, seed=nb * 7 + per_sender, hub=hub,
+                  empty_receiver=empty, device=cuda)
+    live = ex.valid.sum(-1)
+    if hub:   # no hub edge dropped
+        assert int(((ex.data[..., 0] == n // 2 + 1) & ex.valid).sum()) >= hub * nb
+    if empty is not None:
+        assert int(live[empty].sum()) == 0
+    want = ops.merge_runs_plain(ex.data, ex.valid, n)
+    before = ops.LAUNCHES["merge_runs"]
+    trace.take_device_spans()
+    trace.install_device_spans()
+    with trace.device_span("redistribute.merge", cuda):
+        got = ops.merge_runs(ex.data, ex.valid, n)
+    counters = trace.take_device_spans()["counters"]
+    assert ops.LAUNCHES["merge_runs"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert counters == {"redistribute.merge/live": int(live.sum()),
+                        "redistribute.merge/kernel": int(live.sum())}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("base", [0, 3 << 12])
 def test_relabel_gather_kernel_matches_plain(cuda, base):

@@ -1,7 +1,7 @@
 """The device spans and counters of `repro_torch.core.trace` on the CPU, at
 scale 10 and nb 4: the spans `redistribute_sorted` and `distributed_walks`
-record and their parents, the counters of `capacity_all_to_all` against
-their closed forms, a run with no recorder that runs no recorder code and
+record and their parents, the counters of `capacity_all_to_all` and of
+`merge_runs` against their closed forms, a run with no recorder that runs no recorder code and
 returns the same bits, a profiled window that records without an install
 and holds its own spans only, and each span timed on the clock of the
 device its work runs on."""
@@ -18,6 +18,7 @@ from repro_torch.core.types import GraphConfig
 from repro_torch.data.walks import distributed_walks
 from repro_torch.distributed import collectives
 from repro_torch.distributed.collectives import capacity_all_to_all
+from repro_torch.kernels import merge
 
 SCALE, NB, SEED = 10, 4, 7
 W, LENGTH, WALK_SEED = 16, 6, 5
@@ -67,6 +68,7 @@ def test_no_recorder_runs_no_recorder_code_and_returns_the_same_bits(monkeypatch
         m.setattr(trace.DeviceSpans, "span", refuse)
         m.setattr(trace.DeviceSpans, "count", refuse)
         m.setattr(collectives, "count", refuse)   # the exchange's counters and their ops
+        m.setattr(merge, "count", refuse)         # the merge's
         plain = (generate(CFG, device="cpu"), walk(graph, 8.0))
     assert trace.take_device_spans() is None
     spanned, got = recorded(lambda: (generate(CFG, device="cpu"), walk(graph, 8.0)))
@@ -107,7 +109,20 @@ def test_redistribute_counters_closed_forms(factor):
          if k.startswith("redistribute.exchange/")}
     assert c == {"rows": cfg.m, "live": cfg.m, "kept": cfg.m - dropped,
                  "slots": NB * NB * default_capacity(cfg)}
-    assert set(got["counters"]) == {f"redistribute.exchange/{k}" for k in c}
+    assert set(got["counters"]) == {f"redistribute.exchange/{k}" for k in c} | \
+        {"redistribute.merge/live", "redistribute.merge/kernel"}
+
+
+@pytest.mark.parametrize("nb,factor", [(1, 2.0), (2, 1.0), (4, 2.0), (4, 1.0)])
+def test_merge_counters_live_and_kernel(nb, factor):
+    """Under the merge span: the live records merged (every edge kept by the
+    exchange) and those the kernel merged, none on the CPU's plain path."""
+    cfg = GraphConfig(scale=SCALE, edge_factor=16, nb=nb, seed=SEED, capacity_factor=factor)
+    res, got = recorded(lambda: generate(cfg, device="cpu"))
+    c = got["counters"]
+    assert c["redistribute.merge/live"] == cfg.m - int(res.dropped_redistribute) == \
+        int(res.owned.valid.sum()) == c["redistribute.exchange/kept"]
+    assert c["redistribute.merge/kernel"] == 0
 
 
 @pytest.mark.parametrize("factor", [8.0, 1.0])
