@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch + CUDA port (`src/repro_torch`) on one CUDA card.
+"""Smoke test of the PyTorch + CUDA port (`src/repro_torch`) on one CUDA card,
+and of the graph path over four where the machine has them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --cards    # the build and the cards phase alone
 
 Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
 
@@ -63,7 +65,19 @@ Builds the hand-written kernels from `src/repro_torch/kernels/csrc/` and then:
    walk under torch.profiler (`walks_trace`: busy share, device time by
    kernel); then loader_main: a WalkLoader over that CSR on the card (the
    global CSR assembled there, held to the sharded one; build and batch ms,
-   peak memory);
+   peak memory); then cards, with 4 cards or more (else one line that says
+   it was skipped): the four-card path's shapes (Graph500 scale 28, nb 8,
+   two shards a card, as the benchmark's four-card cell runs it), on the
+   last of the 4 cards against the plain versions, bit for bit: merge_runs
+   over one card's 2 receivers ([2, 8, 2^27 + 8] slots, the receivers'
+   rows of every sender's relabelled, sorted R-MAT edges), one launch a
+   call, and its time; rmat_edges over one shard's 2^29-edge block (the
+   plain version in slices of 2^27); relabel_gather over two sorted rows
+   of 2^29 keys (a card's share of a field) against a 2^28 pv; then generate() over cuda:0-3,
+   cold and warm, launch counts set to 0 just before each and read just
+   after (rmat_edges once a shard, relabel_gather twice a card, merge_runs
+   once a card, bucket_hist launched), no drops, 2^32 owned edges, every
+   block on its card, each card's peak;
 4. disk-tier phases (the out-of-core generator, `core/external.py` and
    `core/phases.py`, whose per-chunk hot loops run the four graph kernels
    through `core/chunks.py`; each in a temporary workdir, deleted after):
@@ -227,6 +241,7 @@ VARIANT_SCALE = 16
 # operations of a graph kernel are its per-thread SASS instructions per item
 # (`repro_torch.kernels.sass`), counted in this run's build.
 PLAIN_CHUNK = 1 << 27              # feistel_perm_plain's int64 temporaries, 1 GiB each
+CARDS, CARDS_SCALE = 4, 28         # the four-card path: Graph500 scale 28, two shards a card
 SLEEP_CYCLES = 20_000_000          # ~10 ms of card time ahead of each timed call
 SERVE_ARCH = "internlm2-1.8b"      # launch/serve.py's default architecture
 SERVE_SLOTS, SERVE_MAX_LEN = 8, 4096
@@ -525,6 +540,176 @@ def merge_case(torch, ops, cfg, dev, g, int_ops_per_s) -> dict:
     del data, valid
     torch.cuda.empty_cache()
     return line
+
+
+def cards_merge_exchange(torch, ops, cfg, dev, receivers: int):
+    """merge_runs' input on a card of the four-card path: the exchange's
+    rows for receivers 0 .. receivers-1 from all nb senders, each sender's
+    R-MAT edges relabelled by a random permutation and sorted by source,
+    stably, the live records a prefix of each (receiver, sender) slot range
+    as `bucket_by_destination` leaves them.  Returns (data, valid)."""
+    from repro_torch.core.redistribute import default_capacity
+
+    eps, cap, B = cfg.edges_per_shard, default_capacity(cfg), cfg.bucket_size
+    g = torch.Generator(device=dev).manual_seed(4321)
+    pv = torch.randperm(cfg.n, generator=g, device=dev).to(torch.int32)
+    data = torch.zeros((receivers, cfg.nb, cap, 2), dtype=torch.int32, device=dev)
+    valid = torch.zeros((receivers, cfg.nb, cap), dtype=torch.bool, device=dev)
+    bounds = torch.arange(receivers + 1, dtype=torch.int32, device=dev) * B
+    for bid in range(cfg.nb):
+        src, dst = ops.rmat_edges(cfg, bid * eps, eps, dev)
+        src, order = torch.sort(pv[src.long()], stable=True)
+        dst = pv[dst.long()][order]
+        del order
+        cuts = torch.searchsorted(src, bounds).tolist()
+        for r in range(receivers):
+            lo, hi = cuts[r], cuts[r + 1]
+            require(hi - lo <= cap, f"sender {bid} has {hi - lo} records for receiver {r}, "
+                    f"over the capacity {cap}")
+            data[r, bid, :hi - lo, 0] = src[lo:hi]
+            data[r, bid, :hi - lo, 1] = dst[lo:hi]
+            valid[r, bid, :hi - lo] = True
+        del src, dst
+    return data, valid
+
+
+def cards_kernels(torch, ops, cfg, dev, receivers: int, int_ops_per_s) -> dict:
+    """The four-card path's kernel shapes on one card `dev`, each against
+    its plain version, bit for bit; merge_runs one launch a call, timed.
+    Returns merge_runs' line."""
+    from repro_torch.launch import roofline
+
+    eps = cfg.edges_per_shard
+    with torch.cuda.device(dev):
+        data, valid = cards_merge_exchange(torch, ops, cfg, dev, receivers)
+        live, cap = int(valid.sum()), data.shape[2]
+        before = ops.LAUNCHES["merge_runs"]
+        got = ops.merge_runs(data, valid, cfg.n)
+        require(ops.LAUNCHES["merge_runs"] == before + 1, "merge_runs: not one launch a call")
+        got = [t.cpu() for t in got]            # the plain merge needs the card's memory
+        torch.cuda.empty_cache()
+        for r in range(receivers):
+            want = ops.merge_runs_plain(data[r:r + 1], valid[r:r + 1], cfg.n)
+            require(all(torch.equal(w[0], h[r].to(dev)) for w, h in zip(want, got)),
+                    f"merge_runs [cards] receiver {r} differs from its plain version")
+            del want
+            torch.cuda.empty_cache()
+        del got
+        bound_ms, bound_by = roofline.kernel_bound(8 * live + 9 * receivers * cfg.nb * cap, 0,
+                                                   int_ops_per_s)
+        line = {"phase": "cards", "kernel": "merge_runs",
+                "case": f"cards: {receivers} receivers x {cfg.nb} x {cap} slots, {live} live, "
+                        f"scale {cfg.scale}, on {dev}",
+                "n": live, "max_abs_diff": 0,
+                "kernel_ms": time_ms(lambda: ops.merge_runs(data, valid, cfg.n)),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(line)
+        del data, valid
+        torch.cuda.empty_cache()
+
+        start = (cfg.nb - 1) * eps              # the last shard's block
+        src, dst = ops.rmat_edges(cfg, start, eps, dev)
+        for i in range(0, eps, PLAIN_CHUNK):
+            k = min(PLAIN_CHUNK, eps - i)
+            ps, pd = ops.rmat_edges_plain(cfg, start + i, k, dev)
+            require(torch.equal(ps, src[i:i + k]) and torch.equal(pd, dst[i:i + k]),
+                    f"rmat_edges [cards] differs from its plain version at {start + i}")
+            del ps, pd
+        emit({"phase": "cards", "kernel": "rmat_edges", "n": eps, "max_abs_diff": 0,
+              "case": f"cards: one shard's block, scale {cfg.scale}, start {start}, on {dev}"})
+        field = torch.stack([torch.sort(src).values, torch.sort(dst).values])
+        del src, dst
+        pv = torch.randperm(cfg.n, device=dev).to(torch.int32)
+        got = ops.relabel_gather(field, pv, 0)
+        require(torch.equal(got, relabel_plain_rows(torch, ops, field, pv, 0)),
+                "relabel_gather [cards] differs from its plain version")
+        emit({"phase": "cards", "kernel": "relabel_gather", "n": field.numel(), "max_abs_diff": 0,
+              "case": f"cards: 2 rows of {eps} keys (that block's src and dst, each row "
+                      f"sorted) against pv of {cfg.n} at base 0, on {dev}"})
+        del field, pv, got
+        torch.cuda.empty_cache()
+    return line
+
+
+def cards_main(torch, ops, generate, cfg, devices, label: str) -> dict:
+    """One generate() over `devices`, launch counts set to 0 just before
+    and read just after; no drops, m owned edges, every block on its card,
+    each card's peak.  Returns the launch counts."""
+    D, uniq = len(devices), list(dict.fromkeys(devices))
+    for dev in uniq:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = generate(cfg, device=list(devices))
+    for dev in uniq:
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    checks = {
+        "dropped": int(res.dropped_relabel) == 0 and int(res.dropped_redistribute) == 0,
+        "owned_edges": sum(int(x.sum()) for x in res.csr.num_edges) == cfg.m,
+        "blocks_on_their_cards": all(
+            len(blocks) == D and all(b.device == dev for b, dev in zip(blocks, devices))
+            for blocks in (res.pv, res.src, res.dst, res.owned.src, res.csr.offv,
+                           res.csr.adjv)),
+        "launches": (counts["rmat_edges"] == cfg.nb and counts["relabel_gather"] == 2 * D
+                     and counts["merge_runs"] == D and counts["bucket_hist"] > 0),
+    }
+    emit({"phase": label, "scale": cfg.scale, "nb": cfg.nb, "edges": cfg.m,
+          "devices": [str(d) for d in devices], "wall_s": wall, "edges_per_s": cfg.m / wall,
+          "peak_gib": [torch.cuda.max_memory_allocated(d) / 2**30 for d in uniq],
+          "launches": counts, "checks": checks})
+    require(all(checks.values()), f"{label}: {checks}")
+    del res
+    for dev in uniq:
+        with torch.cuda.device(dev):
+            torch.cuda.empty_cache()
+    return counts
+
+
+def cards_phase(torch, ops, generate, int_ops_per_s) -> dict:
+    """The four-card path (module docstring); nothing with fewer than
+    CARDS cards.  Returns the launch counts of its generate()."""
+    from repro_torch.core.types import GraphConfig
+
+    have = torch.cuda.device_count()
+    if have < CARDS:
+        emit({"phase": "cards", "skipped": f"{have} CUDA devices, the phase needs {CARDS}"})
+        return {}
+    devices = [torch.device("cuda", i) for i in range(CARDS)]
+    cfg = GraphConfig(scale=CARDS_SCALE, nb=NB)
+    cards_kernels(torch, ops, cfg, devices[-1], NB // CARDS, int_ops_per_s)
+    counts = {label: cards_main(torch, ops, generate, cfg, devices, label)
+              for label in ("cards_main_cold", "cards_main")}
+    require(counts["cards_main_cold"] == counts["cards_main"],
+            "the cold and warm four-card runs launched differently")
+    return {"cards_main": counts["cards_main"]}
+
+
+def cards_only() -> int:
+    """`--cards`: the build and the cards phase alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.pipeline import generate
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import roofline
+
+    print(nvidia_smi("name,power.limit"), flush=True)
+    props = torch.cuda.get_device_properties(0)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    t = time.perf_counter()
+    build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t})
+    cards_phase(torch, ops, generate, roofline.int_ops_per_s(props.multi_processor_count,
+                                                             clock_mhz))
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 def main() -> int:
@@ -921,6 +1106,8 @@ def main() -> int:
     del main_csr
     torch.cuda.empty_cache()
     mark("walks_main, walks_trace, loader_main")
+    main_counts.update(cards_phase(torch, ops, generate, int_ops_per_s))
+    mark("cards")
 
     # ------------------------------------------------------------------
     # 4. the disk tier: card == CPU for every driver and variant, and
@@ -3073,4 +3260,6 @@ if __name__ == "__main__":
         sys.exit(disk_run_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--cluster-run"]:
         sys.exit(cluster_run_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(cards_only())
     sys.exit(main())

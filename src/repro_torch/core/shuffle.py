@@ -7,14 +7,20 @@ of `repro.core.shuffle`.
   shuffle_recompute    communication-free: pv[i] = keyed Feistel(i), through
                        the `feistel_perm` kernel
 
-All return pv as a flat int32 tensor of shape (n,), shard-major.
+All return pv as a flat int32 tensor of shape (n,), shard-major; given a
+placement over cards (`distributed/collectives.py::Cards`), the paper's
+shuffle and the recompute return one block a card, card c's shards'
+[per_card * n / nb] part of pv.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..device import resolve_device
+from ..distributed.collectives import Cards, slice_exchange
 from ..kernels.rmat import feistel_perm as _feistel_kernel
 from .hostgen import FEISTEL_ROUNDS, MASK32, graph_perm_key, mix32_int, perm_domain_bits
 from .rmat import mix32
@@ -29,21 +35,26 @@ def _local_shuffle(buf: torch.Tensor, salt: int) -> torch.Tensor:
     return torch.gather(buf, 1, torch.argsort(keys, dim=1))
 
 
-def distributed_shuffle(cfg: GraphConfig, device="cuda") -> torch.Tensor:
-    """Paper-faithful shuffle (Alg. 4)."""
-    dev = resolve_device(device)
+def distributed_shuffle(cfg: GraphConfig, device="cuda", cards: Optional[Cards] = None):
+    """Paper-faithful shuffle (Alg. 4): pv [n] on `device`, or with `cards`
+    a list of each card's [per_card * B] block of it."""
     nb, B = cfg.nb, cfg.bucket_size
     if B % nb:
         raise ValueError("bucket size must split into nb exchange slices")
+    if cards is None:
+        dev = resolve_device(device)
+        return distributed_shuffle(cfg, cards=Cards((dev,), nb))[0]
+    S = cards.per_card
     # sbuf[bid] starts as shard bid's range partition of [0, n).
-    sbuf = torch.arange(cfg.n, dtype=cfg.vertex_dtype, device=dev).reshape(nb, B)
+    sbuf = [torch.arange(cards.first(c) * B, (cards.first(c) + S) * B, dtype=cfg.vertex_dtype,
+                         device=dev).reshape(S, B) for c, dev in enumerate(cards.devices)]
     for r in range(cfg.rounds):
         salt = mix32_int((cfg.seed + r * _GOLDEN) & MASK32)
-        sbuf = _local_shuffle(sbuf, salt)
+        sbuf = [_local_shuffle(b, salt) for b in sbuf]
         if nb > 1:
             # slice j of shard i -> shard j: [sender, dest, blk] -> [dest, sender, blk]
-            sbuf = sbuf.reshape(nb, nb, B // nb).transpose(0, 1).reshape(nb, B)
-    return sbuf.reshape(-1)
+            sbuf = slice_exchange(sbuf, cards)
+    return [b.reshape(-1) for b in sbuf]
 
 
 def shuffle_argsort(cfg: GraphConfig, device="cuda") -> torch.Tensor:
@@ -80,11 +91,16 @@ def graph_perm(seed: int, x: torch.Tensor, n: int,
     return keyed_perm(x, graph_perm_key(seed), n, rounds)
 
 
-def shuffle_recompute(cfg: GraphConfig, device="cuda") -> torch.Tensor:
-    """Communication-free pv: every id through the keyed Feistel family."""
-    dev = resolve_device(device)
-    ids = torch.arange(cfg.n, dtype=cfg.vertex_dtype, device=dev)
-    return graph_perm(cfg.seed, ids, cfg.n, rounds=cfg.feistel_rounds)
+def shuffle_recompute(cfg: GraphConfig, device="cuda", cards: Optional[Cards] = None):
+    """Communication-free pv: every id through the keyed Feistel family; with
+    `cards`, each card's block computed where it lies."""
+    if cards is None:
+        dev = resolve_device(device)
+        return shuffle_recompute(cfg, cards=Cards((dev,), cfg.nb))[0]
+    size = cards.per_card * cfg.bucket_size
+    return [graph_perm(cfg.seed, torch.arange(c * size, (c + 1) * size, dtype=cfg.vertex_dtype,
+                                              device=dev), cfg.n, rounds=cfg.feistel_rounds)
+            for c, dev in enumerate(cards.devices)]
 
 
 def pv_is_permutation(pv: torch.Tensor) -> torch.Tensor:

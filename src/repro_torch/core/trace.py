@@ -28,8 +28,12 @@ close that gap:
                     in-memory pipeline works (`device_span`, `count`): the
                     steps of `redistribute_sorted`, each hop of
                     `distributed_walks`, what `capacity_all_to_all`
-                    offers, keeps and has room for, and what `merge_runs`
-                    merges and how much of it its kernel did.  The host
+                    offers, keeps and has room for, what `merge_runs`
+                    merges and how much of it its kernel did, and, where
+                    the shards lie on several cards, each card's
+                    `generate` ("generate.card"), its copies to the
+                    others ("cards.exchange") and its waits for theirs
+                    ("cards.wait").  The host
                     clock cannot time asynchronous CUDA work, so a span on
                     a card records a CUDA event at entry and exit (on the CPU,
                     whose ops are synchronous: perf_counter) and opens a
@@ -545,14 +549,16 @@ class DeviceSpans:
 
     def count(self, name: str, value) -> None:
         """Add `value` to the counter `name` of the innermost open span
-        (the bare `name` outside every span)."""
+        (the bare `name` outside every span); a tensor counted on another
+        card than the counter's is added on the counter's."""
         stack = self._stack()
         key = f"{stack[-1]}/{name}" if stack else name
         with self._lock:
             if not isinstance(value, torch.Tensor):
                 self._host[key] = self._host.get(key, 0) + int(value)
             elif key in self._device:
-                self._device[key].add_(value)
+                total = self._device[key]
+                total.add_(value if value.device == total.device else value.to(total.device))
             else:
                 self._device[key] = value.to(torch.int64, copy=True).reshape(())
 

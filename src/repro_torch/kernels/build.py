@@ -5,7 +5,8 @@ its own shared library in `build/kernels/` at the root of the checkout
 (git-ignored), named by the source's hash so an edited source is rebuilt;
 the `nvcc` of every source that needs it are started together.  The
 libraries are loaded with `ctypes`.  Every C entry point returns
-`cudaGetLastError()`; `check` raises on a nonzero code.
+`cudaGetLastError()` (`copy_peer_launch`, a copy between cards and no
+kernel, its copy's code); `check` raises on a nonzero code.
 
 `LAUNCHES` counts the launches of each kernel: a wrapper adds one exactly
 where it launches its kernel, and nowhere else (`flash_attention` adds one
@@ -47,7 +48,8 @@ _SIGNATURES = {
     "feistel_perm_launch": [_P, _P, _LL, _I, _I, ctypes.POINTER(_U), _P],
     "relabel_gather_launch": [_P, _P, _P, _LL, _LL, _LL, _LL, _P],
     "bucket_hist_launch": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
-    "merge_runs_launch": [_P, _P, _I, _LL] + [_P] * 7,
+    "merge_runs_launch": [_P, _P, _I, _I, _LL] + [_P] * 7,
+    "copy_peer_launch": [_P, _I, _P, _I, _LL, _P],
     "flash_attention_launch": [_P] * 8 + [_I] * 14 + [ctypes.c_float, _P],
 }
 

@@ -538,14 +538,15 @@ __device__ int merge_corank(const int32_t* keys, int a, int b, int q, unsigned m
   return below + (take < 0 ? 0 : take > ties ? ties : take);
 }
 
-// bounds[r] = {0, ..., 0; L[r, 0], ..., L[r, nb - 1]}, the splits before the
-// first output and past the last: L[r, s] is bucket (r, s)'s first empty
-// slot, found by binary search (its live slots are a prefix).
+// bounds[r] = {0, ..., 0; L[r, 0], ..., L[r, nb - 1]} for each of the
+// `receivers` rows, the splits before the first output and past the last:
+// L[r, s] is bucket (r, s)'s first empty slot, found by binary search (its
+// live slots are a prefix).
 __global__ void __launch_bounds__(kMergeThreads)
-merge_lengths_kernel(const uint8_t* __restrict__ valid, int nb, long long cap,
+merge_lengths_kernel(const uint8_t* __restrict__ valid, int receivers, int nb, long long cap,
                      int32_t* __restrict__ bounds) {
   const int i = blockIdx.x * kMergeThreads + threadIdx.x;
-  if (i >= nb * nb) return;
+  if (i >= receivers * nb) return;
   const uint8_t* v = valid + static_cast<int64_t>(i) * cap;
   long long lo = 0, n = cap;
   while (n > 0) {
@@ -562,17 +563,17 @@ merge_lengths_kernel(const uint8_t* __restrict__ valid, int nb, long long cap,
   bounds[(2 * r + 1) * nb + s] = static_cast<int>(lo);
 }
 
-// splits[r, t, s]: the co-rank in run s of output t * step of receiver r, t
-// in [0, count), searched inside the parent's chunk (parent[r, j]: the
+// splits[r, t, s]: the co-rank in run s of output t * step of receiver r (r
+// below `receivers`), t in [0, count), searched inside the parent's chunk (parent[r, j]: the
 // splits of output j * pstep, j in [0, pcount); parent[r, pcount - 1] lies
 // past every live record).  A group of `group` lanes (a power of two >= nb,
 // at most 32) a split, lane s for run s.
 __global__ void __launch_bounds__(kMergeThreads)
-merge_splits_kernel(const int2* __restrict__ data, int nb, long long cap, int group,
-                    const int32_t* __restrict__ parent, int pcount, long long pstep,
+merge_splits_kernel(const int2* __restrict__ data, int receivers, int nb, long long cap,
+                    int group, const int32_t* __restrict__ parent, int pcount, long long pstep,
                     int32_t* __restrict__ splits, int count, long long step) {
   const int64_t split = (static_cast<int64_t>(blockIdx.x) * kMergeThreads + threadIdx.x) / group;
-  if (split >= static_cast<int64_t>(nb) * count) return;   // the whole group
+  if (split >= static_cast<int64_t>(receivers) * count) return;   // the whole group
   const int lane = threadIdx.x & 31, s = lane & (group - 1);
   const unsigned mask = group == 32 ? 0xFFFFFFFFu : ((1u << group) - 1u) << (lane & ~(group - 1));
   const int r = static_cast<int>(split / count);
@@ -876,17 +877,18 @@ int bucket_hist_launch(const void* dest, long long n, int k, int bins, int grid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// data [nb, nb, cap] (src, dst) int32 pairs, 8-byte aligned; valid [nb, nb,
-// cap] bytes, each bucket's live slots a prefix; scratch: bounds [nb, 2, nb],
-// coarse [nb, chunks + 1, nb] and fine [nb, tiles + 1, nb] int32 (chunks,
-// tiles: nb * cap over kMergeTile * kMergeFan and over kMergeTile, rounded
-// up); out_src, out_dst [nb, nb * cap] int32, out_valid [nb, nb * cap]
-// bytes.  1 <= nb <= 32, cap >= 1, nb * cap < 2^31.
-int merge_runs_launch(const void* data, const void* valid, int nb, long long cap, void* bounds,
-                      void* coarse, void* fine, void* out_src, void* out_dst, void* out_valid,
-                      void* stream) {
-  if (nb < 1 || nb > kMergeMaxRuns || cap < 1 || nb * cap >= (1LL << 31) ||
-      reinterpret_cast<uintptr_t>(data) % 8)
+// data [receivers, nb, cap] (src, dst) int32 pairs, 8-byte aligned; valid
+// [receivers, nb, cap] bytes, each bucket's live slots a prefix; scratch:
+// bounds [receivers, 2, nb], coarse [receivers, chunks + 1, nb] and fine
+// [receivers, tiles + 1, nb] int32 (chunks, tiles: nb * cap over kMergeTile *
+// kMergeFan and over kMergeTile, rounded up); out_src, out_dst [receivers,
+// nb * cap] int32, out_valid [receivers, nb * cap] bytes.  1 <= receivers,
+// 1 <= nb <= 32, cap >= 1, nb * cap < 2^31.
+int merge_runs_launch(const void* data, const void* valid, int receivers, int nb, long long cap,
+                      void* bounds, void* coarse, void* fine, void* out_src, void* out_dst,
+                      void* out_valid, void* stream) {
+  if (receivers < 1 || receivers > 65535 || nb < 1 || nb > kMergeMaxRuns || cap < 1 ||
+      nb * cap >= (1LL << 31) || reinterpret_cast<uintptr_t>(data) % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long row = nb * cap, chunk = static_cast<long long>(kMergeTile) * kMergeFan;
@@ -899,25 +901,38 @@ int merge_runs_launch(const void* data, const void* valid, int nb, long long cap
   int32_t* c = static_cast<int32_t*>(coarse);
   int32_t* f = static_cast<int32_t*>(fine);
   int err = 0;
-  merge_lengths_kernel<<<(nb * nb + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, st>>>(
-      static_cast<const uint8_t*>(valid), nb, cap, b);
+  merge_lengths_kernel<<<(receivers * nb + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0,
+                         st>>>(static_cast<const uint8_t*>(valid), receivers, nb, cap, b);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  const long long coarse_threads = static_cast<long long>(nb) * (chunks + 1) * group;
+  const long long coarse_threads = static_cast<long long>(receivers) * (chunks + 1) * group;
   merge_splits_kernel<<<static_cast<unsigned>((coarse_threads + kMergeThreads - 1) / kMergeThreads),
-                        kMergeThreads, 0, st>>>(d, nb, cap, group, b, 2, row, c, chunks + 1, chunk);
+                        kMergeThreads, 0, st>>>(d, receivers, nb, cap, group, b, 2, row, c,
+                                                chunks + 1, chunk);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  const long long fine_threads = static_cast<long long>(nb) * (tiles + 1) * group;
+  const long long fine_threads = static_cast<long long>(receivers) * (tiles + 1) * group;
   merge_splits_kernel<<<static_cast<unsigned>((fine_threads + kMergeThreads - 1) / kMergeThreads),
-                        kMergeThreads, 0, st>>>(d, nb, cap, group, c, chunks + 1, chunk, f,
-                                                tiles + 1, kMergeTile);
+                        kMergeThreads, 0, st>>>(d, receivers, nb, cap, group, c, chunks + 1, chunk,
+                                                f, tiles + 1, kMergeTile);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
   if ((err = static_cast<int>(cudaFuncSetAttribute(
            merge_runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMergeSmem))))
     return err;
-  merge_runs_kernel<<<dim3(tiles, nb), kMergeThreads, kMergeSmem, st>>>(
+  merge_runs_kernel<<<dim3(tiles, receivers), kMergeThreads, kMergeSmem, st>>>(
       d, nb, cap, f, tiles + 1, static_cast<int32_t*>(out_src), static_cast<int32_t*>(out_dst),
       static_cast<uint8_t*>(out_valid));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Copies `bytes` from `src` on device `src_device` to `dst` on device
+// `dst_device`, on `stream` (the sender's): peer to peer where access
+// between the two is enabled, else staged through the host by CUDA.
+int copy_peer_launch(void* dst, int dst_device, const void* src, int src_device, long long bytes,
+                     void* stream) {
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes == 0) return 0;
+  return static_cast<int>(cudaMemcpyPeerAsync(dst, dst_device, src, src_device,
+                                              static_cast<size_t>(bytes),
+                                              static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

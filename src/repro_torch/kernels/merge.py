@@ -39,11 +39,9 @@ def _check(data: torch.Tensor, valid: torch.Tensor) -> None:
     if data.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError(f"merge_runs takes int32 records and bool valid, got {data.dtype} "
                         f"and {valid.dtype}")
-    nb = data.shape[0]
-    if data.dim() != 4 or data.shape[1] != nb or data.shape[3] != 2 or \
-            tuple(valid.shape) != tuple(data.shape[:3]):
-        raise ValueError(f"merge_runs takes data [nb, nb, cap, 2] and valid [nb, nb, cap], got "
-                         f"{tuple(data.shape)} and {tuple(valid.shape)}")
+    if data.dim() != 4 or data.shape[3] != 2 or tuple(valid.shape) != tuple(data.shape[:3]):
+        raise ValueError(f"merge_runs takes data [receivers, nb, cap, 2] and valid [receivers, "
+                         f"nb, cap], got {tuple(data.shape)} and {tuple(valid.shape)}")
     if not (data.is_contiguous() and valid.is_contiguous()):
         raise ValueError("merge_runs takes contiguous data and valid")
     if data.device != valid.device:
@@ -54,11 +52,11 @@ def merge_runs_plain(data: torch.Tensor, valid: torch.Tensor, n: int):
     """Plain version: each receiver's runs keyed by source, empty slots by
     the sentinel n, merged by `merge_sorted_runs` with (dst, valid) as the
     payload."""
-    nb, cap = data.shape[0], data.shape[2]
-    out_src = torch.empty((nb, nb * cap), dtype=data.dtype, device=data.device)
-    out_dst = torch.empty((nb, nb * cap), dtype=data.dtype, device=data.device)
-    out_valid = torch.empty((nb, nb * cap), dtype=torch.bool, device=data.device)
-    for r in range(nb):
+    receivers, nb, cap = data.shape[:3]
+    out_src = torch.empty((receivers, nb * cap), dtype=data.dtype, device=data.device)
+    out_dst = torch.empty((receivers, nb * cap), dtype=data.dtype, device=data.device)
+    out_valid = torch.empty((receivers, nb * cap), dtype=torch.bool, device=data.device)
+    for r in range(receivers):
         rs, rd, rv = data[r, ..., 0], data[r, ..., 1], valid[r]
         keys = torch.where(rv, rs, n)
         payload = torch.stack([rd, rv.to(rd.dtype)], dim=-1)
@@ -73,9 +71,11 @@ def merge_runs_plain(data: torch.Tensor, valid: torch.Tensor, n: int):
 
 def merge_runs(data: torch.Tensor, valid: torch.Tensor,
                n: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """out_src, out_dst [nb, nb * cap] int32 and out_valid [nb, nb * cap]
-    bool: receiver r's runs data[r] ([nb senders, cap] (src, dst) records,
-    the live ones valid[r]'s prefixes) merged by source, sources below n.
+    """out_src, out_dst [receivers, nb * cap] int32 and out_valid
+    [receivers, nb * cap] bool: receiver r's runs data[r] ([nb senders, cap]
+    (src, dst) records, the live ones valid[r]'s prefixes) merged by source,
+    sources below n.  One card's receivers are all nb shards, or its share
+    of them where the shards lie on several cards.
 
     Where a device span records (`core/trace.py`), it counts under it the
     live records merged ("live") and those the kernel merged ("kernel",
@@ -89,7 +89,7 @@ def merge_runs(data: torch.Tensor, valid: torch.Tensor,
         return out
     if data.device.type != "cuda":
         raise ValueError(f"merge_runs: unsupported device {data.device}")
-    nb, cap = data.shape[0], data.shape[2]
+    receivers, nb, cap = data.shape[:3]
     row = nb * cap
     if nb > MAX_RUNS or row >= 1 << 31:
         raise ValueError(f"merge_runs kernel takes nb <= {MAX_RUNS} and nb * cap < 2^31, "
@@ -98,17 +98,18 @@ def merge_runs(data: torch.Tensor, valid: torch.Tensor,
         raise ValueError("merge_runs kernel takes data on an 8-byte boundary")
     dev = data.device
     tiles, chunks = -(-row // TILE), -(-row // (TILE * FAN))
-    bounds = torch.empty((nb, 2, nb), dtype=torch.int32, device=dev)
-    coarse = torch.empty((nb, chunks + 1, nb), dtype=torch.int32, device=dev)
-    fine = torch.empty((nb, tiles + 1, nb), dtype=torch.int32, device=dev)
-    out_src = torch.empty((nb, row), dtype=torch.int32, device=dev)
-    out_dst = torch.empty((nb, row), dtype=torch.int32, device=dev)
-    out_valid = torch.empty((nb, row), dtype=torch.bool, device=dev)
+    bounds = torch.empty((receivers, 2, nb), dtype=torch.int32, device=dev)
+    coarse = torch.empty((receivers, chunks + 1, nb), dtype=torch.int32, device=dev)
+    fine = torch.empty((receivers, tiles + 1, nb), dtype=torch.int32, device=dev)
+    out_src = torch.empty((receivers, row), dtype=torch.int32, device=dev)
+    out_dst = torch.empty((receivers, row), dtype=torch.int32, device=dev)
+    out_valid = torch.empty((receivers, row), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = build.library().merge_runs_launch(
-            data.data_ptr(), valid.data_ptr(), nb, cap, bounds.data_ptr(), coarse.data_ptr(),
-            fine.data_ptr(), out_src.data_ptr(), out_dst.data_ptr(), out_valid.data_ptr(), stream)
+            data.data_ptr(), valid.data_ptr(), receivers, nb, cap, bounds.data_ptr(),
+            coarse.data_ptr(), fine.data_ptr(), out_src.data_ptr(), out_dst.data_ptr(),
+            out_valid.data_ptr(), stream)
     build.check(err, "merge_runs")
     build.LAUNCHES["merge_runs"] += 1
     if counting():

@@ -869,3 +869,82 @@ def test_checkpoint_of_a_card_state_restores_equal_leaves(cuda, tmp_path):
     for a, b in zip(tree.leaves(restored), tree.leaves(state)):
         assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
         assert a.requires_grad == b.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# The graph kernels on a second card, and the graph path over four cards
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def second_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.gpu
+def test_graph_kernels_launch_on_their_inputs_card(second_card):
+    """With card 0 current, each graph kernel launched on tensors of card 1
+    runs there (its wrapper makes that card current) and gives the plain
+    version's bits; a receiver's share of an exchange (2 of 4 rows) merges
+    as the whole does."""
+    from merge_cases import exchange
+
+    dev = second_card
+    torch.cuda.set_device(0)
+    cfg = GraphConfig(scale=20)
+    got = ops.rmat_edges(cfg, 5, 1 << 18, device=dev)
+    want = ops.rmat_edges_plain(cfg, 5, 1 << 18, dev)
+    assert got[0].device == dev and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    x = torch.randint(0, 1 << 20, (1 << 18,), dtype=torch.int32, device=dev)
+    assert torch.equal(ops.feistel_perm(x, 0xBEEF, 20), ops.feistel_perm_plain(x, 0xBEEF, 20))
+    keys = torch.sort(x.reshape(4, -1), dim=1).values
+    chunk = torch.randperm(1 << 20, device=dev).to(torch.int32)
+    assert torch.equal(ops.relabel_gather(keys, chunk, 0), ops.relabel_gather_plain(keys, chunk, 0))
+    dest = torch.randint(-1, 9, (1 << 20,), dtype=torch.int32, device=dev)
+    assert torch.equal(ops.bucket_hist(dest, 8), ops.bucket_hist_plain(dest, 8))
+    ex = exchange(4, 3000, 1 << 16, 1008, seed=3, hub=None, empty_receiver=None, device=dev)
+    part = (ex.data[2:].contiguous(), ex.valid[2:].contiguous())
+    for g, w, whole in zip(ops.merge_runs(*part, 1 << 16), ops.merge_runs_plain(*part, 1 << 16),
+                           ops.merge_runs(ex.data, ex.valid, 1 << 16)):
+        assert g.device == dev and torch.equal(g, w) and torch.equal(g, whole[2:])
+    torch.cuda.synchronize(dev)
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [16, 20])
+@pytest.mark.parametrize("sv", ["paper", "recompute"])
+def test_generate_over_four_cards_equals_one_card(four_cards, scale, sv):
+    """8 shards, two a card: every block on its card, and the bits of the
+    one-card call; the exchanges copy between the cards."""
+    from repro_torch.core import trace
+    from repro_torch.core.pipeline import generate
+
+    cfg = GraphConfig(scale=scale, nb=8, seed=scale * 31 + 7)
+    one = generate(cfg, sv, device=four_cards[0])
+    trace.take_device_spans()
+    trace.install_device_spans()
+    many = generate(cfg, sv, device=four_cards)
+    got = trace.take_device_spans()
+    for name in ("pv", "src", "dst"):
+        blocks = getattr(many, name)
+        assert [b.device for b in blocks] == four_cards
+        assert torch.equal(torch.cat([b.to(four_cards[0]) for b in blocks]), getattr(one, name))
+    for part in ("owned", "csr"):
+        for f in getattr(one, part)._fields:
+            if f != "dropped":
+                blocks = getattr(getattr(many, part), f)
+                assert [b.device for b in blocks] == four_cards
+                assert torch.equal(torch.cat([b.to(four_cards[0]) for b in blocks]),
+                                   getattr(getattr(one, part), f)), (part, f)
+    assert int(many.dropped_redistribute) == 0
+    names = [n for n, _, _ in got["spans"]]
+    assert names.count("generate.card") == 4 and got["counters"]["cards.exchange/bytes"] > 0

@@ -116,7 +116,9 @@ def test_kernel_bounds():
 def test_mesh_shapes():
     assert mesh.make_production_mesh() == {"data": 16, "model": 16}
     assert mesh.make_production_mesh(multi_pod=True) == {"pod": 2, "data": 16, "model": 16}
-    assert mesh.make_graph_mesh(8) == 8 and mesh.make_graph_mesh() == 1
+    assert mesh.make_graph_mesh(8).nb == 8 and mesh.make_graph_mesh().nb == 1
+    graph = mesh.make_graph_mesh(8, ["cpu"] * 4)
+    assert (graph.count, graph.per_card) == (4, 2)
 
 
 def test_variants_equal_reference():
