@@ -27,7 +27,8 @@ close that gap:
   DeviceSpans       spans timed on the device and counters kept where the
                     in-memory pipeline works (`device_span`, `count`): the
                     steps of `redistribute_sorted`, each hop of
-                    `distributed_walks`, what `capacity_all_to_all`
+                    `distributed_walks` and the bytes of the walker rows
+                    its exchange moves, what `capacity_all_to_all`
                     offers, keeps and has room for, what `merge_runs`
                     merges and how much of it its kernel did, and, where
                     the shards lie on several cards, each card's

@@ -4,8 +4,11 @@
   csr_walks          the same walks on tensors of any device (the loader's)
   distributed_walks  walkers MIGRATE between shards with the paper's k:1
                      scatter-gather (`capacity_all_to_all`): before every hop
-                     each walker goes to the shard that owns its current
-                     vertex, which advances it from its LOCAL CSR rows.  The
+                     each walker's state (position, walker id) goes to the
+                     shard that owns its current vertex, which advances it
+                     from its LOCAL CSR rows.  The history stays put, in a
+                     table by walker id that each hop writes, and is laid
+                     out in the reference's row order once at the end.  The
                      reference's nb-shard mesh is the leading dimension of
                      each array here, so on the card every hop runs the
                      `bucket_hist` kernel once per shard.
@@ -48,10 +51,10 @@ from ..core.phases import (
     plain_config,
     result_config_key,
 )
-from ..core.trace import device_span
+from ..core.trace import count, counting, device_span
 from ..core.transport import make_transport
 from ..core.types import GraphConfig, owner_of
-from ..distributed.collectives import capacity_all_to_all
+from ..distributed.collectives import JUNK_ROWS, capacity_all_to_all
 from ..kernels.ref import mix32
 
 
@@ -138,13 +141,18 @@ def distributed_walks(cfg: GraphConfig, offv: torch.Tensor, adjv: torch.Tensor, 
 
     `offv` [nb*(B+1)] and `adjv` [nb*cap_m] are the per-shard CSR as
     `CSRShards` holds it.  Shard i starts walkers i*W .. i*W+W-1 at vertices
-    it owns; before every hop all walkers go to the owner of their current
-    vertex with `capacity_all_to_all` (capacity cp = ceil(W * factor / nb)
-    per shard pair, cap = cp * nb rows per shard), so each hop reads local
-    CSR rows only.  A receiver's rows are sender-major.  Walkers past a
-    pair's capacity are dropped and counted; their rows end invalid.  Each
-    hop is two device spans (`core/trace.py`), "walks.exchange" and
-    "walks.advance".
+    it owns; before every hop each walker's state (position, walker id) goes
+    to the owner of its current vertex with `capacity_all_to_all` (capacity
+    cp = ceil(W * factor / nb) per shard pair, cap = cp * nb rows per
+    shard), so each hop reads local CSR rows only.  A receiver's rows are
+    sender-major, and a row is live where the exchange gave it a slot.
+    Walkers past a pair's capacity are dropped and counted; their rows end
+    invalid.  The history never moves: each hop's live rows write their new
+    vertex into a table by walker id, and the table's rows are laid out in
+    the final row order once, after the last hop (a row no walker holds is
+    all zeros).  Each hop is two device spans (`core/trace.py`),
+    "walks.exchange" and "walks.advance"; the exchange counts "row_bytes",
+    the bytes of the state rows it is offered.
     """
     nb, B, n, W = cfg.nb, cfg.bucket_size, cfg.n, walkers_per_shard
     vdt = cfg.vertex_dtype
@@ -163,45 +171,54 @@ def distributed_walks(cfg: GraphConfig, offv: torch.Tensor, adjv: torch.Tensor, 
     base = shard * B
     wid = shard * W + torch.arange(W, dtype=torch.int64, device=dev)
     pos = start_vertex(seed, wid, B, base, dtype=vdt)
-    # each shard's rows: [pos, wid, alive, hist[0..length]]; padding rows
-    # carry pos 0, wid -1, alive 0
-    payload = torch.zeros((nb, cap, 4 + length), dtype=vdt, device=dev)
-    payload[:, :W, 0] = pos
-    payload[:, :, 1] = -1
-    payload[:, :W, 1] = wid.to(vdt)
-    payload[:, :W, 2] = 1
-    payload[:, :W, 3] = pos
+    # the history table: walker w's vertices in row w, and row nb*W all
+    # zeros for the rows no walker holds; the JUNK_ROWS entries past it take
+    # the writes of those rows, spread over them since the card serialises
+    # writes to one address
+    walkers, width = nb * W, length + 1
+    flat = torch.zeros((walkers + 1) * width + JUNK_ROWS, dtype=vdt, device=dev)
+    table = flat[:(walkers + 1) * width].view(walkers + 1, width)
+    table[:walkers, 0] = pos.reshape(-1)
+    # each shard's rows: [pos, wid]; padding rows carry pos 0, wid -1 and are not alive
+    state = torch.zeros((nb, cap, 2), dtype=vdt, device=dev)
+    state[:, :W, 0] = pos
+    state[:, :, 1] = -1
+    state[:, :W, 1] = wid.to(vdt)
+    alive = torch.zeros((nb, cap), dtype=torch.bool, device=dev)
+    alive[:, :W] = True
     del wid, pos
+    junk = (walkers + 1) * width + (torch.arange(nb * cap, device=dev) & (JUNK_ROWS - 1))
+    junk = junk.reshape(nb, cap)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
     for t in range(length):
         with device_span("walks.exchange", dev):
-            ex = capacity_all_to_all(payload, owner_of(payload[..., 0], B), capacity=cp,
-                                     valid=payload[..., 2] == 1)
+            ex = capacity_all_to_all(state, owner_of(state[..., 0], B), capacity=cp, valid=alive)
+            if counting():
+                count("row_bytes", state.numel() * state.element_size())
             dropped += ex.dropped
             # [receiver, sender, cp, .] -> each receiver's rows, sender-major
-            payload = ex.data.reshape(nb, cap, 4 + length)
-            alive = ex.valid.reshape(nb, cap) & (payload[..., 2] == 1)
+            state = ex.data.reshape(nb, cap, 2)
+            alive = ex.valid.reshape(nb, cap)
             del ex
         with device_span("walks.advance", dev):
             # advance one hop from local CSR rows
-            row = (payload[..., 0].to(torch.int64) - base).clamp(0, B - 1)
+            row = (state[..., 0].to(torch.int64) - base).clamp(0, B - 1)
             start = torch.gather(offv_s, 1, row)
             deg = torch.gather(offv_s, 1, row + 1) - start
             del row
-            r = walk_rand(seed, payload[..., 1], t + 1)
+            r = walk_rand(seed, state[..., 1], t + 1)
             sink = deg <= 0
             idx = start + torch.where(sink, 0, r % deg.clamp(min=1))
             del start, deg
             nxt = torch.gather(adjv_s, 1, idx.clamp(0, adjv_s.shape[1] - 1)).to(torch.int64)
-            nxt = torch.where(sink, r % n, nxt)
-            nxt = torch.where(alive, nxt, 0).to(vdt)
+            nxt = torch.where(sink, r % n, nxt).to(vdt)
             del idx, r, sink
-            payload[..., 0] = nxt
-            payload[..., 2] = alive.to(vdt)
-            payload[..., 4 + t] = nxt
-            del nxt, alive
-    return (payload[..., 3:].reshape(nb * cap, length + 1), payload[..., 2].reshape(-1) == 1,
-            payload[..., 1].reshape(-1), dropped)
+            state[..., 0] = nxt
+            at = torch.where(alive, state[..., 1].to(torch.int64) * width + (t + 1), junk)
+            flat[at] = nxt
+            del nxt, at
+    valid, wid = alive.reshape(-1), state[..., 1].reshape(-1)
+    return table[torch.where(valid, wid.to(torch.int64), walkers)], valid, wid, dropped
 
 
 def walks_to_tokens(walks, vocab: int) -> Tuple:

@@ -15,6 +15,7 @@ from repro_torch.core import trace
 from repro_torch.core.pipeline import generate
 from repro_torch.core.redistribute import default_capacity
 from repro_torch.core.types import GraphConfig
+from repro_torch.data import walks
 from repro_torch.data.walks import distributed_walks
 from repro_torch.distributed import collectives
 from repro_torch.distributed.collectives import capacity_all_to_all
@@ -22,6 +23,7 @@ from repro_torch.kernels import merge
 
 SCALE, NB, SEED = 10, 4, 7
 W, LENGTH, WALK_SEED = 16, 6, 5
+STATE_BYTES = 8            # a walker row crossing the exchange: position and id, int32 each
 CFG = GraphConfig(scale=SCALE, edge_factor=16, nb=NB, seed=SEED)
 REDISTRIBUTE_SPANS = [("redistribute.sort", None), ("redistribute.exchange", None),
                       ("redistribute.merge", None)]
@@ -69,6 +71,7 @@ def test_no_recorder_runs_no_recorder_code_and_returns_the_same_bits(monkeypatch
         m.setattr(trace.DeviceSpans, "count", refuse)
         m.setattr(collectives, "count", refuse)   # the exchange's counters and their ops
         m.setattr(merge, "count", refuse)         # the merge's
+        m.setattr(walks, "count", refuse)         # the walk's row bytes
         plain = (generate(CFG, device="cpu"), walk(graph, 8.0))
     assert trace.take_device_spans() is None
     spanned, got = recorded(lambda: (generate(CFG, device="cpu"), walk(graph, 8.0)))
@@ -135,6 +138,9 @@ def test_walk_counters_closed_forms(graph, factor):
     assert c["walks.exchange/rows"] == LENGTH * NB * cap
     assert c["walks.exchange/slots"] == LENGTH * NB * NB * cp
     assert c["walks.exchange/kept"] == c["walks.exchange/live"] - dropped
+    # only the walker's state crosses the exchange, never its history
+    assert c["walks.exchange/row_bytes"] == c["walks.exchange/rows"] * STATE_BYTES
+    assert c["walks.exchange/row_bytes"] <= 16 * c["walks.exchange/rows"]
     if factor == 8.0:
         assert dropped == 0 and c["walks.exchange/live"] == LENGTH * NB * W
     else:
@@ -175,7 +181,7 @@ def test_a_profiled_window_holds_its_own_spans_only(graph):
     assert [(name, parent) for name, parent, _ in got["spans"]] == \
         [("walks.exchange", None), ("walks.advance", None)] * LENGTH
     assert set(got["counters"]) == {f"walks.exchange/{k}" for k in
-                                    ("rows", "live", "kept", "slots")}
+                                    ("rows", "live", "kept", "slots", "row_bytes")}
 
 
 class FakeEvent:

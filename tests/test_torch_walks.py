@@ -127,6 +127,28 @@ def test_distributed_walks_match_host_oracle(graphs):
     np.testing.assert_array_equal(hist[live], want)
 
 
+@pytest.mark.parametrize("nb,seed", [(1, 0), (2, 3), (8, 7)])
+def test_walker_zero_keeps_its_history_among_empty_slots(graphs, nb, seed):
+    """Factor 8 leaves 7 in 8 of the rows empty, and an empty slot carries
+    walker id 0 and no walker: walker 0's one row still holds its own whole
+    walk (host_walks from its start), so no empty slot wrote through id 0."""
+    cfg = GraphConfig(scale=SCALE, nb=nb)
+    csr = graphs[nb].csr
+    hist, valid, wid, dropped = distributed_walks(cfg, csr.offv, csr.adjv, length=LENGTH,
+                                                  seed=seed, walkers_per_shard=W,
+                                                  capacity_factor=8.0)
+    valid, wid = valid.numpy(), wid.numpy()
+    assert int(dropped) == 0 and valid.sum() == nb * W and (~valid).sum() == 7 * nb * W
+    assert (wid[~valid] == 0).all()
+    zero = np.flatnonzero(valid & (wid == 0))
+    assert zero.size == 1
+    start = start_vertex(seed, np.zeros(1, np.uint32), cfg.bucket_size, 0)
+    offv, adjv = csr_to_host(csr, cfg)
+    want = host_walks(offv, adjv, start, LENGTH, seed, n=cfg.n, walker_ids=np.zeros(1, np.int64))
+    np.testing.assert_array_equal(hist.numpy()[zero], want)
+    assert (hist.numpy()[~valid] == 0).all()
+
+
 def test_capacity_below_walkers_raises(reference, graphs):
     """Factor 0.5 leaves fewer rows per shard than walkers: the reference
     fails, the port raises ValueError."""
